@@ -1,6 +1,6 @@
-"""buildingsegment_tpu — a TPU-native building point-cloud segmentation framework.
+"""buildingsegment_tpu — a JAX building point-cloud segmentation framework.
 
-A brand-new JAX/XLA/Pallas implementation of the capabilities of the
+A JAX/XLA implementation of the capabilities of the
 reference C++ tool ``little-little-point-cloud-group/buildingSegment``
 (``tmc3``): load a building LiDAR PLY scan, quantize positions to integer
 millimeters, estimate per-point normals and a k-nearest-neighbor graph,
@@ -12,8 +12,8 @@ Unlike the reference (single-threaded CPU, KD-trees, recursive seed
 queues — see SURVEY.md), scans here are padded fixed-capacity point
 tensors, the hot per-point stages run as fused on-device kernels
 (tiled kNN, covariance-PCA normals, fixed-point label-propagation region
-growing, scatter-add rasterization), and large scans shard over a TPU
-mesh with XLA collectives.
+growing, scatter-add rasterization), and large scans shard over a
+device mesh with XLA collectives.
 
 Public entry points:
     - :mod:`buildingsegment_tpu.pipeline` — end-to-end segmentation

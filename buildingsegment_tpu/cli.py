@@ -19,6 +19,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import sys
 
 from buildingsegment_tpu.config import PipelineConfig
@@ -45,7 +46,7 @@ def parse_args(argv):
 
     p = argparse.ArgumentParser(
         prog="buildingsegment_tpu",
-        description="TPU-native building point-cloud plane segmentation",
+        description="building point-cloud plane segmentation (JAX)",
     )
     p.add_argument("--input", help="input PLY (alias of -a=)")
     p.add_argument("--output", help="output labeled PLY (alias of -s=)")
@@ -54,10 +55,9 @@ def parse_args(argv):
     p.add_argument("--normal-radius", type=float, default=100.0)
     p.add_argument(
         "--knn-method",
-        choices=["auto", "brute", "window", "pallas"],
+        choices=["auto", "brute", "window"],
         default="auto",
-        help="auto: Morton-window above 65k points, exact brute below; "
-        "pallas: exact fused TPU kernel",
+        help="auto: Morton-window above 65k points, exact brute below",
     )
     p.add_argument("--normal-max-nn", type=int, default=50)
     p.add_argument("--th-thickness", type=float, default=300.0)
@@ -136,28 +136,36 @@ def parse_args(argv):
     return args, input_path, output_path
 
 
+#: the compile cache when ``JAX_COMPILATION_CACHE_DIR`` is unset: a
+#: fixed directory in the checkout (listed in .gitignore), so repeat
+#: runs from one checkout find their compiled programs again
+DEFAULT_CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    ".jax_cache",
+)
+
+
+def compile_cache_dir() -> str:
+    """``JAX_COMPILATION_CACHE_DIR`` when set, else
+    :data:`DEFAULT_CACHE_DIR`."""
+    return os.environ.get("JAX_COMPILATION_CACHE_DIR") or DEFAULT_CACHE_DIR
+
+
 def _enable_compile_cache():
-    """Persistent XLA compile cache: first run on a new shape pays the
-    (minutes-long on a remote-compile TPU) compilation once; repeat CLI
-    invocations hit the disk cache."""
-    import os
+    """Persistent XLA compile cache: the first run of a new shape pays
+    its compilation once; repeat invocations hit the disk cache.  When
+    ``JAX_COMPILATION_CACHE_DIR`` is set JAX already reads it, and no
+    other directory is set here."""
+    import jax
 
-    try:
-        import jax
-
-        cache = os.environ.get(
-            "BST_COMPILE_CACHE",
-            os.path.expanduser("~/.cache/buildingsegment_tpu/jax"),
-        )
-        os.makedirs(cache, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", cache)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 5)
-        # numeric sanitizer (SURVEY.md §5: the rebuild's stand-in for
-        # the reference's nonexistent sanitizers): fail fast on NaNs
-        if os.environ.get("BST_DEBUG_NANS"):
-            jax.config.update("jax_debug_nans", True)
-    except Exception:
-        pass  # cache is an optimization, never a hard requirement
+    if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        os.makedirs(DEFAULT_CACHE_DIR, exist_ok=True)
+        jax.config.update("jax_compilation_cache_dir", DEFAULT_CACHE_DIR)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 5)
+    # numeric sanitizer (SURVEY.md §5: the rebuild's stand-in for the
+    # reference's nonexistent sanitizers): fail fast on NaNs
+    if os.environ.get("BST_DEBUG_NANS"):
+        jax.config.update("jax_debug_nans", True)
 
 
 def main(argv=None) -> int:
@@ -193,7 +201,6 @@ def main(argv=None) -> int:
 
     if args.batch:
         import glob
-        import os
 
         in_dir, out_dir = args.batch
         inputs = sorted(glob.glob(os.path.join(in_dir, "*.ply")))
@@ -261,8 +268,6 @@ def main(argv=None) -> int:
 
         paths = render_ortho_views(out, args.render_dir, config)
         if args.extract_contours:
-            import os
-
             from buildingsegment_tpu.raster.contours import extracted_contour
 
             extracted_contour(

@@ -41,22 +41,20 @@ class PipelineConfig:
 
     # --- kNN graph ---
     knn_k: int = 15                 # includes self at slot 0
-    # Padded k for TPU-friendly shapes (lane-sized multiples); slots
-    # beyond knn_k are masked out.
+    # Padded k (a power of two); slots beyond knn_k are masked out.
     knn_k_pad: int = 16
     # "auto": Morton-window search above knn_auto_threshold points,
     # exact brute force below; "brute" / "window" force a method.
     knn_method: str = "auto"
-    # ± half-window in Morton order.  48 adopted as the production
-    # default (perf_window_quality + perf_winner on one v5e chip:
-    # stats sweep 9.4 ms vs 10.8 at w64, headline agreement 0.9857 vs
-    # 0.9858 — same quality, ~8% faster stage)
+    # ± half-window in Morton order (48: the same bench-scene agreement
+    # as 64 at three quarters of the candidates; not measured on the
+    # H100 yet)
     knn_window: int = 48
     knn_auto_threshold: int = 65536
     # every shifted coordinate < 2^20 mm (1048 m): the Morton sort then
-    # drops its residual word (3 sort operands instead of 4 — measured
-    # win at 1M points).  Host drivers set this from the scan bbox at
-    # read time; False is always safe.
+    # drops its residual word (3 sort operands instead of 4).  Host
+    # drivers set this from the scan bbox at read time; False is always
+    # safe.
     morton_small: bool = False
 
     # --- normal estimation ---
@@ -81,17 +79,14 @@ class PipelineConfig:
     # groups of this size become super-points; 1 = single level)
     seg_group: int = 4
     # recursive coarsening depth / per-point refinement sweeps.
-    # 2 levels + 2 refine sweeps adopted as the r5 production default:
-    # with the full finalize heal at every level, levels=2 measured
-    # 35.1 ms e2e vs 57.0 at levels=3 on the chip (bench 2026-08-21,
-    # agreement 0.9911 vs 0.9905), and the multi-building brittleness
-    # that motivated levels=3 is gone (tools/quality_r5.py block scene:
-    # l2 0.9657 vs l3 0.9679 — r4 pre-heal it was 0.909 vs 0.959).
-    # The bench keeps a {"seg_levels": 3} reverse candidate and falls
-    # back to the safe config below the quality floor.  Density is
-    # handled by the spacing_hint_mm edge-gate scaling (r4): sparse
-    # scans keep coarse connectivity (tests/test_multigrid.py density
-    # sweep pins 50/150/300 mm), dense scans keep tight gates.
+    # 2 levels + 2 refine sweeps: with the full finalize heal at every
+    # level, levels=2 matches levels=3 on the bench scene's truth
+    # agreement (0.9911 vs 0.9905) and on the multi-building block
+    # scene (0.9657 vs 0.9679); the bench keeps a {"seg_levels": 3}
+    # reverse candidate.  Density is handled by the spacing_hint_mm
+    # edge-gate scaling: sparse scans keep coarse connectivity
+    # (tests/test_multigrid.py density sweep pins 50/150/300 mm), dense
+    # scans keep tight gates.
     seg_levels: int = 2
     seg_refine_sweeps: int = 2      # per-point refinement sweeps
     # anchor-pure model estimation (region_grow.segment_planes
@@ -125,37 +120,13 @@ class PipelineConfig:
     contour_close_iters: int = 2
     contour_kernel_size: int = 5    # ellipse structuring element
 
-    # --- perf variant knobs (bench.py autotunes these at run time on
-    # the real chip and adopts the fastest variant that passes the
-    # quality gate; the defaults are the measured-safe paths) ---
-    # compact-space coarse solver (ops/compact_sweep.py); None defers
-    # to the BST_COMPACT env default read at import
-    seg_compact: Optional[bool] = None
-    # stats-kernel order-statistics ranking: "bisect" | "bitonic";
-    # None defers to BST_RANK_MODE (default "bitonic" — measured
-    # 12.67 ms vs 27.2 ms for the w64/t8192 stats sweep at 1.08M on
-    # one v5e chip, bit-exact vs bisect)
-    stats_rank_mode: Optional[str] = None
-    # stats kernel phase 3: re-read candidates at stored aligned
-    # offsets instead of strided rows (part of the same measured win)
-    stats_store_offsets: bool = True
-    # stats kernel phase 1: symmetry-halved pair sweep (bit-identical;
-    # each unordered pair computed once).  None defers to BST_STATS_SYM
-    # (default ON — chip-measured faster at the production window,
-    # 9.4 vs 10.8 ms at 1.08M; BST_STATS_SYM=0 reverts).
-    stats_sym: Optional[bool] = None
-    # seed-sweep kernel: "pair" (one-directional shifts) | "sym"
-    # (symmetry-halved) | "mxu" (block-MXU matmul form,
-    # ops/stats_mxu.py — near-exact, quality-gated).  None defers to
-    # BST_SEED_MODE (default "sym" — bit-identical to "pair", measured
-    # 4.04 vs 4.90 ms at 1.08M on one v5e chip).
-    seg_seed_mode: Optional[str] = None
+    # --- seed source ---
     # multigrid seed gate: None/"fine" = the fine-level window_seeds
     # sweep (the reference's depth-0 rule re-expressed,
     # tmc3/my_function.cpp:238); "coarse" = derive the gate from the
-    # group-coherence statistics (skips the fine sweep, ~4-5 ms at 1M
-    # points — a bench candidate whose adoption the quality gate
-    # arbitrates, seg/coarse.py)
+    # group-coherence statistics (skips the fine sweep — a bench
+    # candidate whose adoption the quality gate arbitrates,
+    # seg/coarse.py)
     seg_seed_source: Optional[str] = None
 
     # Host-proven point-spacing hint (mm, the morton_small pattern):

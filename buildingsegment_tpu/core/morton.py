@@ -2,16 +2,17 @@
 
 The reference carries a dead LUT-based Morton encoder from TMC13
 (tmc3/PCCMath.h:621-642 — its lookup tables were never shipped, so it
-cannot even link).  Spatial locality matters much more for the TPU
-rebuild: Morton-sorting the cloud makes neighbor candidates contiguous
-in memory, which is what lets windowed kNN and range sharding work.
+cannot even link).  Spatial locality matters much more for the
+data-parallel rebuild: Morton-sorting the cloud makes neighbor
+candidates contiguous in memory, which is what lets windowed kNN and
+range sharding work.
 
-TPUs have no fast int64 path (and JAX defaults to x64-disabled), so
+JAX defaults to x64-disabled (no int64 arrays), so
 instead of one 63-bit code we interleave 10 bits per axis into 30-bit
 int32 words and sort LSD-radix style: a stable argsort by the low word
 followed by a stable argsort by the high word yields the exact order of
 the full 60-bit (20 bits/axis, ~1 km at mm resolution) code.  Encoding
-is vectorized magic-number bit spreading — no tables, pure VPU ops.
+is vectorized magic-number bit spreading — no tables, elementwise ops.
 """
 
 from __future__ import annotations
@@ -96,8 +97,7 @@ def morton_decode(code: jax.Array) -> jax.Array:
 def morton_sort(positions: jax.Array, mask: jax.Array,
                 small_extent: bool = False):
     """Sort positions+mask by the 60-bit Morton code via ONE
-    multi-operand ``lax.sort`` — no argsort-then-gather (an XLA gather
-    runs ~2 GB/s on TPU).
+    multi-operand ``lax.sort`` — no argsort-then-gather.
 
     XLA sort cost scales with the number of carried columns, so the
     coordinates are NOT carried: the two Morton words already hold bits
@@ -106,7 +106,7 @@ def morton_sort(positions: jax.Array, mask: jax.Array,
     geometry is exact for any int32 coordinate.  Ordering uses bits
     0-19 per axis (~1 km at mm resolution) exactly as before — beyond
     that points still sort into coarse cells.  4 sort operands instead
-    of 7: measured 25 → ~15 ms at 1M points on a v5e chip.
+    of 7.
 
     ``small_extent=True`` (static) declares every UNMASKED coordinate
     < 2^20 (1048 m at mm scale — every building scan; the host drivers
@@ -188,10 +188,9 @@ def unsort_by(order: jax.Array, *payloads: jax.Array):
 
     ``order`` (as returned by :func:`morton_sort`) maps sorted row →
     original row; sorting the payload columns by it restores the
-    original frame through the same multi-operand sorting network.  An
-    XLA ``zeros.at[order].set(v)`` scatter costs ~11 ms at 1M rows on
-    TPU (it hides a full sort AND random-access writes); this runs at
-    plain sort speed (~4 ms).
+    original frame through the same multi-operand sorting network
+    instead of a ``zeros.at[order].set(v)`` scatter (random-access
+    writes; not measured against it on the H100 yet).
 
     Returns the unsorted payload (or tuple of payloads).
     """

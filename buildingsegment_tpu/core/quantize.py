@@ -42,7 +42,7 @@ def dedup_quantized(
     mask low bits, sort, keep first of each run).  Returns an updated
     validity mask with later duplicates cleared; order is preserved and
     the FIRST occurrence in index order survives, like the reference's
-    stable pass.  TPU-shaped: sort by (key, index), compare runs,
+    stable pass.  Data-parallel: sort by (key, index), compare runs,
     scatter the keep flags back.
     """
     from buildingsegment_tpu.core.morton import morton_encode

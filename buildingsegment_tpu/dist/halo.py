@@ -4,7 +4,8 @@ The cloud is Morton-sorted globally and sharded into contiguous ranges
 over the 1-D ``points`` mesh axis, so every windowized op (±W slice
 sweeps for kNN, normal moments, label propagation) only ever needs the
 last/first W rows of the ring neighbors — exchanged here with
-``lax.ppermute`` over ICI.  This is the point-cloud analog of context-
+``lax.ppermute`` between neighbouring devices.  This is the point-cloud
+analog of context-
 parallel halo exchange; the reference has no equivalent (it is a
 single-thread CPU binary, tmc3/TMC3.cpp:202-229).
 
@@ -17,8 +18,8 @@ When the halo width exceeds the local shard extent (small coarse
 multigrid levels: e.g. 4096 points / 8 shards / two 8× coarsenings →
 8 rows per shard against window 16), the exchange walks the ring for
 ``ceil(w/S)`` hops so each side still returns EXACTLY ``w`` rows —
-the r3 single-hop version silently returned short halos and the static
-window slices then walked off the padded array (MULTICHIP_r03).
+a single-hop version silently returned short halos and the static
+window slices then walked off the padded array (tests/test_dist.py).
 """
 
 from __future__ import annotations

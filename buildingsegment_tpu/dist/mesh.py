@@ -6,8 +6,7 @@ parallelism of any kind (SURVEY.md §2.5).  The rebuild's scaling axis is
 axis (the data/sequence-parallel analog for a geometry pipeline), and
 XLA's SPMD partitioner inserts the collectives (all-gathers for
 neighbor lookups across shard boundaries, reductions for segment
-statistics) — the TPU-native equivalent of a hand-written NCCL/MPI
-backend.
+statistics) — instead of a hand-written NCCL/MPI backend.
 """
 
 from __future__ import annotations
@@ -50,21 +49,22 @@ def make_mesh(
 
 
 def make_multihost_mesh(n_devices: Optional[int] = None) -> Mesh:
-    """1-D ``points`` mesh ordered host-contiguously (multi-host/DCN).
+    """1-D ``points`` mesh ordered host-contiguously (multi-host).
 
     The sharded pipeline's communication is ring-structured: the only
     per-sweep exchanges are (a) ±W halo rows between *adjacent* shards
     (``lax.ppermute`` in dist/halo.py) and (b) O(L)-sized psum/pmin
     label tables.  Ordering the mesh by ``(process_index, local id)``
     maps Morton-contiguous shard ranges host-contiguously, so the halo
-    ring crosses DCN only at the H−1 host boundaries — one W-row
-    message per boundary per sweep — and rides ICI everywhere else;
-    the table reductions are small enough to be DCN-tolerant by size.
+    ring crosses the inter-host network only at the H−1 host
+    boundaries — one W-row message per boundary per sweep — and stays
+    on the intra-host links (NVLink) everywhere else; the table
+    reductions are small enough to tolerate the slower link by size.
     On a single host this is exactly :func:`make_mesh`.
 
     (The reference has no multi-process story at all — single-thread
     CPU binary, tmc3/TMC3.cpp:202-229; SURVEY.md §2.5 names this layout
-    as the rebuild's DCN design.)
+    as the rebuild's multi-host design.)
     """
     devices = sorted(
         jax.devices(),

@@ -3,15 +3,15 @@
 Point-shard data parallelism per SURVEY.md §2.5, written as explicit
 SPMD rather than GSPMD pass-through (the auto-partitioner resolves the
 windowized pipeline's global data dependencies by all-gathering, i.e.
-8 chips ≈ 1× speedup):
+8 devices ≈ 1× speedup):
 
   * the cloud is Morton-sorted globally, then split into contiguous
     ranges over the 1-D ``points`` mesh axis — shards are spatially
     coherent boxes of the scan;
   * every windowized op (fused kNN+normals sweep, seed rule, label
     propagation, refinement) runs shard-locally, reading ±W halo rows
-    exchanged with ``lax.ppermute`` ring steps over ICI
-    (:mod:`buildingsegment_tpu.dist.halo`);
+    exchanged with ``lax.ppermute`` ring steps between neighbouring
+    devices (:mod:`buildingsegment_tpu.dist.halo`);
   * label resolution is collective: per-label statistics are psum'd
     compact tables, the merge parent table is pmin'd, and the plane
     table / renumbering work on replicated tables
@@ -26,7 +26,7 @@ iteration, and is O(N log N) on bytes (not the bottleneck — the sweep
 loop is).
 
 The reference has no parallelism of any kind (single-thread CPU binary,
-tmc3/TMC3.cpp:202-229); this layer is the TPU-native scaling story.
+tmc3/TMC3.cpp:202-229); this layer is the multi-device scaling story.
 """
 
 from __future__ import annotations
@@ -94,9 +94,6 @@ def sharded_stats_body(mesh: Mesh, config: PipelineConfig):
                 spos, smask, k=knn_k, window=config.knn_window,
                 radius=config.normal_radius,
                 max_nn=config.normal_max_nn, axis_name=ax,
-                rank_mode=config.stats_rank_mode,
-                store_offsets=config.stats_store_offsets,
-                sym=config.stats_sym,
             )
         return knn_normals_window_sorted(
             spos, smask, k=k_q, window=config.knn_window,
@@ -159,8 +156,6 @@ def sharded_grow_body(mesh: Mesh, config: PipelineConfig, *,
                 kth_sq_dist=dk, curvature=curv,
                 group=config.seg_group, levels=config.seg_levels,
                 refine_sweeps=config.seg_refine_sweeps,
-                compact=config.seg_compact,
-                seed_mode=config.seg_seed_mode,
                 seed_source=config.seg_seed_source,
                 spacing_hint_mm=config.spacing_hint_mm,
                 axis_name=ax, **seg_kwargs,
@@ -173,13 +168,11 @@ def sharded_grow_body(mesh: Mesh, config: PipelineConfig, *,
             th_normal_cos=config.th_normal_cos,
             signed_normals=signed_normals,
             axis_name=ax,
-            seed_mode=config.seg_seed_mode,
         )
         return segment_planes(
             spos, normals, neigh_idx[:, :knn_k], smask,
             neigh_sq_dist=neigh_d[:, :knn_k], curvature=curv,
             seed_override=seeds, propagation="window",
-            compact=config.seg_compact,
             axis_name=ax, **seg_kwargs,
         )
 
@@ -249,12 +242,10 @@ def sharded_pipeline(
     multigrid path — the only one whose work scales with shards.
 
     ``fn`` dispatches TWO jitted stages (sort+stats | segmentation)
-    back to back: compiling the whole pipeline as one XLA program was
-    measured ~55 ms slower at 1M points than the identical ops split
-    at the segmentation boundary (a scheduling pathology in the single
-    giant program — all buffers at the boundary are [N]-sized, so the
-    materialization itself costs ~0.1 ms).  Both stages stay fully
-    sharded; the boundary does not gather.
+    back to back, split like the single-device pipeline
+    (``pipeline._window_stage2``); every buffer at the boundary is
+    [N]-sized.  Both stages stay fully sharded; the boundary does not
+    gather.
     """
     del capacity_hint  # kept for API compatibility
     in_shardings = (point_sharding(mesh, 2), point_sharding(mesh, 1))

@@ -1,4 +1,4 @@
-// Native PLY codec — fast host-side parse/serialize for the TPU pipeline.
+// Native PLY codec — fast host-side parse/serialize for the device pipeline.
 //
 // C++ replacement for the reference's stream-based parser/serializer
 // (reference: tmc3/ply.cpp:88-504, a per-point ifs.read loop).  This

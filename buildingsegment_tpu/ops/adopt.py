@@ -1,344 +1,66 @@
-"""Fused hole-adoption kernel for the multigrid finalize.
+"""Hole fill of the multigrid finalize: adjacency-free plane adoption.
 
-The finalize's hole fill (seg/coarse.py, heal=True) tests every
-unlabeled point against the top-K merged plane models: plane-band
-offset, normal cos, and in-plane proximity — all [N, K]-shaped with
-K = 128.  Expressed in XLA that is three [N,3]x[3,128] matmuls plus a
-chain of [N,128] elementwise/selection ops and a separate one-hot
-segsum for the adoption sums: every [N,128] f32 intermediate that
-fails to fuse is ~550 MB of HBM traffic at N = 1M.  This kernel fuses
-the whole decision INTO one pass over the point payload:
-
-    per tile:  M = A @ B          (one [T,8]x[8,384] MXU op)
-               off / cos / pc2 = lane-tile slices of M
-               ok, best lane, adopted row = [T,128] VPU selection
-               acc128 += onehot(best)^T @ A   (the adoption sums)
-
-HBM traffic drops to the [N,8] payload read + two [N] outputs
-(~46 MB at 1M points).  The adoption sums land in a [128, 8] table
-accumulated across the sequential grid (the ops/segsum.py pattern), so
-the caller's separate plane_sums pass over N disappears too.
-
-Semantics are bit-compatible with the XLA formula it replaces
-(seg/coarse.py hole-fill block): first-occurrence argmin over the
-masked |off| row, HIGHEST-precision dots (mm-scale geometry,
-CLAUDE.md), count column exact in f32.
-
-Replaces (in spirit) the reference's sequential region reachability —
-tmc3/my_function.cpp:220-258 has no holes to fill because its DFS
-visits every connected point; the multigrid solver trades that for
-this adjacency-free adoption pass.
+An unlabeled point ("hole") tests itself directly against the K
+largest merged planes of the finalize table: plane band |p·n − b| ≤ th,
+normal agreement, and in-plane proximity to the plane's extent
+(reach² per plane).  It adopts the accepting plane with the smallest
+|p·n − b| (first lane on ties), and its payload row is added to that
+plane's sums.  Every test is an ``[N, K]`` product at
+``Precision.HIGHEST``: the mm-scale expansion |p|² − 2p·c + |c|² cancels
+catastrophically at lower precision (TF32 would drop ~10 mantissa bits).
 """
 
 from __future__ import annotations
 
-import functools
-
-import jax
 import jax.numpy as jnp
 from jax import lax
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-__all__ = ["plane_adopt", "pack_adopt_tables"]
+from buildingsegment_tpu.ops.segsum import plane_sums
 
-_K = 128  # plane lanes (top-K table)
-_BIG = 3e38  # finite "no candidate" sentinel (python float → static)
+__all__ = ["plane_adopt"]
 
 
-def pack_adopt_tables(nk, ck, bk, ccdk, reach2, lane_ok, rowlut):
-    """Pack per-plane data into the kernel's two small operands.
+def plane_adopt(payload, holes, nk, ck, bk, ccdk, reach2, lane_ok, rows,
+                *, table_cap, th_thickness, th_cos, signed=False):
+    """Adopt holes into the K candidate planes.
 
     Args:
-        nk: f32[K,3] unit plane normals (K <= 128).
-        ck: f32[K,3] plane centers.
-        bk: f32[K] plane offsets (nk·ck).
-        ccdk: f32[K] |ck|².
-        reach2: f32[K] squared in-plane reach.
-        lane_ok: f32[K] 1.0 where the plane may adopt (live + flat).
-        rowlut: f32[K] merged-root row of each lane.
+        payload: f32[n, 8] rows [1, n̂ (canonical normal), p, |p|²].
+        holes: bool[n] rows allowed to adopt.
+        nk, ck: f32[K, 3] unit normals and centers of the candidates.
+        bk, ccdk: f32[K] plane offsets n·c and |c|².
+        reach2: f32[K] squared in-plane reach of each candidate.
+        lane_ok: f32[K] > 0 where the candidate may adopt at all.
+        rows: int32[K] table row of each candidate.
+        table_cap: rows of the returned sums table.
 
-    Returns (B f32[8,384], tab f32[8,128]).  B maps the finalize
-    payload row [cnt=1, n̂, p, |p|²] to the three decision columns:
-        cols   0-127: off = p·nk − bk
-        cols 128-255: cosr = n̂·nk
-        cols 256-383: pc2 = p·ck − |ck|²/2   (d² = |p|² − 2·pc2)
+    Returns (adopted bool[n], adopt_row int32[n] — the chosen
+    candidate's table row, meaningful where adopted — and the adopted
+    rows' payload sums f32[table_cap, 8] by table row).
     """
-    k = nk.shape[0]
-    B = jnp.zeros((8, 3 * _K), jnp.float32)
-    pad = lambda v: jnp.pad(v.astype(jnp.float32), ((0, _K - k),)) \
-        if k != _K else v.astype(jnp.float32)
-    padm = lambda m: jnp.pad(m.astype(jnp.float32),
-                             ((0, _K - k), (0, 0))) \
-        if k != _K else m.astype(jnp.float32)
-    nkp, ckp = padm(nk), padm(ck)
-    B = B.at[0, 0:_K].set(-pad(bk))
-    B = B.at[4:7, 0:_K].set(nkp.T)
-    B = B.at[1:4, _K:2 * _K].set(nkp.T)
-    B = B.at[0, 2 * _K:3 * _K].set(-0.5 * pad(ccdk))
-    B = B.at[4:7, 2 * _K:3 * _K].set(ckp.T)
-    tab = jnp.zeros((8, _K), jnp.float32)
-    tab = tab.at[0, :].set(pad(reach2))
-    tab = tab.at[1, :].set(pad(lane_ok))
-    tab = tab.at[2, :].set(pad(rowlut))
-    return B, tab
-
-
-def _adopt_kernel(payload_ref, holes_ref, B_ref, tab_ref,
-                  adopted_ref, row_ref, acc_out_ref, acc, *,
-                  tile, th_thickness, th_cos, signed, skip=True):
-    ti = pl.program_id(0)
-    # read the persistent accumulator BEFORE any conditional write
-    # this step (zero-init by select on step 0 — segsum.py rule)
-    acc_val = jnp.where(ti == 0, 0.0, acc[...])
-    hole = holes_ref[...]  # f32[T], 1.0 = unlabeled candidate
-    # Morton-sorted labels leave holes CLUSTERED, so most tiles carry
-    # none — skip the whole [T,128] decision for them (measured: the
-    # unskipped kernel cost ~14 ms of the 57 ms multigrid stage at 1M
-    # points; the e2e hole fraction is a few % on dense scans)
-    has = jnp.max(hole) > 0.0
-
-    def _compute():
-        A = payload_ref[...]  # [T, 8]: cnt=1, n̂, p, |p|²
-        M = lax.dot_general(
-            A, B_ref[...], (((1,), (0,)), ((), ())),
-            precision=lax.Precision.HIGHEST,
-            preferred_element_type=jnp.float32,
-        )  # [T, 384]
-        off = M[:, 0:_K]
-        cosr = M[:, _K:2 * _K]
-        pc2 = M[:, 2 * _K:3 * _K]
-        sq = A[:, 7:8]  # [T, 1]
-        aoff = jnp.abs(off)
-        cos = cosr if signed else jnp.abs(cosr)
-        # inpl² = max(d² − off², 0) with d² = sq − 2·pc2; the clamp is
-        # dropped: reach² ≥ 0 so max(x,0) ≤ r² ⟺ x ≤ r²
-        inpl2 = (sq - 2.0 * pc2) - off * off
-        reach2 = tab_ref[0:1, :]  # [1, 128]
-        lane_ok = tab_ref[1:2, :]
-        rowlut = tab_ref[2:3, :]
-        ok = (
-            (aoff <= th_thickness)
-            & (cos >= th_cos)
-            & (inpl2 <= reach2)
-            & (lane_ok > 0.0)
-            & (hole[:, None] > 0.0)
-        )
-        offsel = jnp.where(ok, aoff, _BIG)
-        m = jnp.min(offsel, axis=1)  # [T]
-        adopted = (m < _BIG) & (hole > 0.0)
-        iota = lax.broadcasted_iota(jnp.int32, (tile, _K), 1)
-        eq = (offsel == m[:, None]) & ok
-        lane = jnp.min(jnp.where(eq, iota, _K), axis=1)  # first min
-        sel = (iota == lane[:, None]) & adopted[:, None]  # [T, 128]
-        row = jnp.sum(jnp.where(sel, rowlut, 0.0), axis=1)
-        adopted_ref[...] = adopted.astype(jnp.float32)
-        row_ref[...] = row
-        # adoption sums: acc128[l] += Σ_{i: sel[i,l]} A[i]  (one-hot
-        # MXU matmul; each accumulated term is an exact f32 product,
-        # so the result matches the XLA scatter-add up to addition
-        # order)
-        selT = jnp.where(sel, 1.0, 0.0).T  # [128, T]
-        newacc = acc_val + lax.dot_general(
-            selT, A, (((1,), (0,)), ((), ())),
-            precision=lax.Precision.HIGHEST,
-            preferred_element_type=jnp.float32,
-        )
-        acc[...] = newacc
-        acc_out_ref[...] = newacc
-
-    def _skip():
-        adopted_ref[...] = jnp.zeros((tile,), jnp.float32)
-        row_ref[...] = jnp.zeros((tile,), jnp.float32)
-        # the two branches are exhaustive: acc is written exactly once
-        # per step, and the only read (acc_val above) precedes both
-        acc[...] = acc_val
-        acc_out_ref[...] = acc_val
-
-    if skip:
-        pl.when(has)(_compute)
-        pl.when(jnp.logical_not(has))(_skip)
-    else:  # straight-line variant (compile-memory / perf bisection)
-        _compute()
-
-
-def _adopt_kernel_t(payT_ref, holes_ref, BT_ref, tabT_ref,
-                    adopted_ref, row_ref, acc_out_ref, acc, *,
-                    tile, th_thickness, th_cos, signed, skip=True):
-    """Transposed-layout twin of _adopt_kernel: payload rides as
-    [8, T] (lanes along points — no 8→128 lane padding of the point
-    blocks), the decision matrix as M_T = BT @ payT → [384, T], and
-    every [T, 128] selection becomes [128, T] with reductions over
-    SUBLANES instead of lanes.  Semantics identical (same first-min
-    tie rule, HIGHEST dots); arbitration is perf-only
-    (BST_ADOPT_T=1, chip-measured before adoption)."""
-    ti = pl.program_id(0)
-    acc_val = jnp.where(ti == 0, 0.0, acc[...])
-    hole = holes_ref[...]  # f32[T]
-    has = jnp.max(hole) > 0.0
-
-    def _compute():
-        A_T = payT_ref[...]  # [8, T]
-        M_T = lax.dot_general(
-            BT_ref[...], A_T, (((1,), (0,)), ((), ())),
-            precision=lax.Precision.HIGHEST,
-            preferred_element_type=jnp.float32,
-        )  # [384, T]
-        off = M_T[0:_K, :]
-        cosr = M_T[_K:2 * _K, :]
-        pc2 = M_T[2 * _K:3 * _K, :]
-        sq = A_T[7:8, :]  # [1, T]
-        aoff = jnp.abs(off)
-        cos = cosr if signed else jnp.abs(cosr)
-        inpl2 = (sq - 2.0 * pc2) - off * off
-        reach2 = tabT_ref[:, 0:1]  # [128, 1]
-        lane_ok = tabT_ref[:, 1:2]
-        rowlut = tabT_ref[:, 2:3]
-        ok = (
-            (aoff <= th_thickness)
-            & (cos >= th_cos)
-            & (inpl2 <= reach2)
-            & (lane_ok > 0.0)
-            & (hole[None, :] > 0.0)
-        )
-        offsel = jnp.where(ok, aoff, _BIG)
-        m = jnp.min(offsel, axis=0)  # [T]
-        adopted = (m < _BIG) & (hole > 0.0)
-        iota = lax.broadcasted_iota(jnp.int32, (_K, tile), 0)
-        eq = (offsel == m[None, :]) & ok
-        lane = jnp.min(jnp.where(eq, iota, _K), axis=0)  # first min
-        sel = (iota == lane[None, :]) & adopted[None, :]  # [128, T]
-        row = jnp.sum(jnp.where(sel, rowlut, 0.0), axis=0)
-        adopted_ref[...] = adopted.astype(jnp.float32)
-        row_ref[...] = row
-        selF = jnp.where(sel, 1.0, 0.0)  # [128, T]
-        newacc = acc_val + lax.dot_general(
-            selF, A_T, (((1,), (1,)), ((), ())),
-            precision=lax.Precision.HIGHEST,
-            preferred_element_type=jnp.float32,
-        )  # [128, 8]
-        acc[...] = newacc
-        acc_out_ref[...] = newacc
-
-    def _skip():
-        adopted_ref[...] = jnp.zeros((tile,), jnp.float32)
-        row_ref[...] = jnp.zeros((tile,), jnp.float32)
-        acc[...] = acc_val
-        acc_out_ref[...] = acc_val
-
-    if skip:
-        pl.when(has)(_compute)
-        pl.when(jnp.logical_not(has))(_skip)
-    else:
-        _compute()
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("th_thickness", "th_cos", "signed", "tile",
-                     "skip", "interpret", "transposed"),
-)
-def plane_adopt(payload, holes, B, tab, *, th_thickness, th_cos,
-                signed=False, tile=None, skip=None, interpret=None,
-                transposed=None):
-    """Adopt unlabeled points into the top-K merged plane table.
-
-    Args:
-        payload: f32[n, 8] finalize payload rows
-            [1, n̂x, n̂y, n̂z, px, py, pz, |p|²].
-        holes: bool[n] candidate rows (mask & unlabeled).
-        B, tab: packed tables from :func:`pack_adopt_tables`.
-        th_thickness / th_cos: plane-band and normal gates (static).
-        signed: signed-normal semantics (no |cos|).
-
-    Returns (adopted bool[n], row int32[n], acc128 f32[128, 8]):
-    ``row`` is the merged-root row each adopted point joins;
-    ``acc128`` holds the per-LANE adoption payload sums (lane order,
-    NOT root-row order — fold with a [P,128] one-hot matmul).
-    """
-    import os
-
-    if interpret is None:
-        interpret = jax.devices()[0].platform == "cpu"
-    if tile is None:
-        tile = int(os.environ.get("BST_ADOPT_TILE", "2048"))
-    if skip is None:
-        skip = os.environ.get("BST_ADOPT_SKIP", "1") == "1"
-    n = payload.shape[0]
-    tile = min(tile, max(128, 1 << (n - 1).bit_length()))
-    n_pad = -(-n // tile) * tile
-    holesf = holes.astype(jnp.float32)
-    if n_pad != n:
-        payload = jnp.concatenate(
-            [payload, jnp.zeros((n_pad - n, 8), jnp.float32)]
-        )
-        holesf = jnp.concatenate(
-            [holesf, jnp.zeros((n_pad - n,), jnp.float32)]
-        )
-    if transposed is None:
-        transposed = os.environ.get("BST_ADOPT_T", "0") == "1"
-    if transposed:
-        kernel = functools.partial(
-            _adopt_kernel_t, tile=tile,
-            th_thickness=float(th_thickness),
-            th_cos=float(th_cos), signed=signed, skip=skip,
-        )
-        in_specs = [
-            pl.BlockSpec((8, tile), lambda ti: (0, ti),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((tile,), lambda ti: (ti,),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((3 * _K, 8), lambda ti: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((_K, 8), lambda ti: (0, 0),
-                         memory_space=pltpu.VMEM),
-        ]
-        ops = (payload.astype(jnp.float32).T, holesf,
-               B.T, tab.T)
-    else:
-        kernel = functools.partial(
-            _adopt_kernel, tile=tile,
-            th_thickness=float(th_thickness),
-            th_cos=float(th_cos), signed=signed, skip=skip,
-        )
-        in_specs = [
-            pl.BlockSpec((tile, 8), lambda ti: (ti, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((tile,), lambda ti: (ti,),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((8, 3 * _K), lambda ti: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((8, _K), lambda ti: (0, 0),
-                         memory_space=pltpu.VMEM),
-        ]
-        ops = (payload.astype(jnp.float32), holesf, B, tab)
-    adopted, row, acc128 = pl.pallas_call(
-        kernel,
-        grid=(n_pad // tile,),
-        in_specs=in_specs,
-        out_specs=[
-            pl.BlockSpec((tile,), lambda ti: (ti,),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((tile,), lambda ti: (ti,),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((_K, 8), lambda ti: (0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((n_pad,), jnp.float32),
-            jax.ShapeDtypeStruct((n_pad,), jnp.float32),
-            jax.ShapeDtypeStruct((_K, 8), jnp.float32),
-        ],
-        scratch_shapes=[pltpu.VMEM((_K, 8), jnp.float32)],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary",),
-            # [T,384] dot + ~8 live [T,128] selection temps at
-            # tile 2048 exceed the default 16 MB scoped-vmem stack
-            vmem_limit_bytes=64 * 1024 * 1024,
-        ),
-        interpret=interpret,
-    )(*ops)
-    if n_pad != n:
-        adopted = lax.slice(adopted, (0,), (n,))
-        row = lax.slice(row, (0,), (n,))
-    return adopted > 0.0, row.astype(jnp.int32), acc128
+    hi = lax.Precision.HIGHEST
+    cmag = (lambda x: x) if signed else jnp.abs
+    cn, pos, sq = payload[:, 1:4], payload[:, 4:7], payload[:, 7:8]
+    offk = jnp.dot(pos, nk.T, preferred_element_type=jnp.float32,
+                   precision=hi) - bk[None, :]
+    cosk = cmag(jnp.dot(cn, nk.T, preferred_element_type=jnp.float32,
+                        precision=hi))
+    d2k = sq + ccdk[None, :] - 2.0 * jnp.dot(
+        pos, ck.T, preferred_element_type=jnp.float32, precision=hi
+    )
+    inpl2 = jnp.maximum(d2k - offk * offk, 0.0)
+    okk = (
+        (jnp.abs(offk) <= th_thickness)
+        & (cosk >= th_cos)
+        & (inpl2 <= reach2[None, :])
+        & (lane_ok > 0)[None, :]
+        & holes[:, None]
+    )
+    arg = jnp.argmin(jnp.where(okk, jnp.abs(offk), jnp.inf), axis=1)
+    adopted = jnp.any(okk, axis=1)
+    adopt_row = rows.astype(jnp.int32)[arg]  # a K-entry table lookup
+    acc = plane_sums(
+        jnp.where(adopted, adopt_row, table_cap), payload, table_cap,
+        table_cap=table_cap,
+    )
+    return adopted, adopt_row, acc

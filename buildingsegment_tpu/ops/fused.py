@@ -154,9 +154,8 @@ def knn_normals_window_sorted(
 
         def offset_rows():
             # 1-D concat then reshape: jnp.stack of [T] rows would go
-            # through [1, T] intermediates whose TPU layout puts the
-            # 128-lane axis on the unit dimension (128× padding — the
-            # OOM we hit at 1M points); 1-D concatenation is layout-safe
+            # through [1, T] intermediates, which some layouts pad along
+            # the unit dimension; 1-D concatenation is layout-safe
             rows = []
             for slot in range(w2):
                 start = slot if slot < window else slot + 1

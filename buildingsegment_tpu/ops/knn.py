@@ -1,12 +1,12 @@
 """k-nearest-neighbor graph construction — on-device.
 
-TPU-native replacement for the reference's Open3D KD-tree queries
+Data-parallel replacement for the reference's Open3D KD-tree queries
 (``KDTreeFlann::SearchKNN`` per-point loop, tmc3/my_function.h:71-78).
-KD-trees are pointer-chasing structures that do not map to the MXU.
-Two strategies replace them:
+KD-trees are pointer-chasing structures that do not map to wide
+data-parallel hardware.  Two strategies replace them:
 
 :func:`knn` — exact tiled brute force.  Distances for a
-  (query_tile × cand_tile) block come from one MXU matmul via the
+  (query_tile × cand_tile) block come from one matrix product via the
   expansion |q-c|² = |q|² - 2 q·c + |c|², a running top-k per query is
   merged tile by tile with ``lax.top_k`` (never materializing the full
   N×N matrix), and an exact diff-form refinement pass re-ranks the
@@ -19,8 +19,9 @@ Two strategies replace them:
   coherent order); each point's candidates are the ±W window around it
   in sorted order, so the whole graph is one batched gather + diff-form
   distance + top_k with O(N·W) work and no sequential dependency —
-  exactly the access pattern TPUs like.  Z-order discontinuities make
-  this approximate: neighbor-set recall vs the brute-force oracle is
+  exactly the access pattern accelerators like.  Z-order
+  discontinuities make this approximate: neighbor-set recall vs the
+  brute-force oracle is
   ~0.78 at W=32 / ~0.83 at W=64 on sparse surface scans (tests pin the
   floor).  A single curve's misses live at Z-cell boundaries, so a
   SECOND pass over a TRANSLATED Morton order (coordinates offset by an
@@ -77,8 +78,7 @@ def knn_window_sorted(
     """kNN over a ±window in an ALREADY Morton-sorted cloud.
 
     Zero general gathers: each offset's candidate column is a contiguous
-    shifted slice of the sorted array (XLA gathers run ~2 GB/s on TPU;
-    slices run at HBM speed), distances accumulate into a [2W, N]
+    shifted slice of the sorted array, distances accumulate into a [2W, N]
     scratch, and one ``top_k`` ranks the window.
 
     Args:
@@ -117,8 +117,8 @@ def knn_window_sorted(
     # bound); static slices of the one padded array fuse into a few
     # big elementwise kernels
     # 1-D concat then reshape: jnp.stack of [n] rows would go through
-    # [1, n] intermediates whose TPU layout puts the 128-lane axis on
-    # the unit dimension (128× padding → OOM at 1M points)
+    # [1, n] intermediates, which some layouts pad along the unit
+    # dimension
     rows_d = []
     for slot in range(w2):
         start = slot if slot < window else slot + 1
@@ -217,9 +217,8 @@ def knn_window(
             [jnp.zeros((n, 1), bool), s_i[:, 1:] == s_i[:, :-1]], axis=1
         )
         s_d = jnp.where(dup, _INF, s_d)
-        # 2-operand sort, NOT top_k + take_along_axis: the gather form
-        # measured 211.6 ms vs 17.1 at [1M, 15] on chip
-        # (tools/knn_finish_probe.py)
+        # 2-operand sort, NOT top_k + take_along_axis: the sort carries
+        # the ids along instead of gathering them per row
         r_d, r_i = lax.sort((s_d, s_i), dimension=1, num_keys=1,
                             is_stable=False)
         nb_d = r_d[:, : k - 1]
@@ -309,10 +308,10 @@ def knn(
             c_start = ci * cand_tile
             c = lax.dynamic_slice(pos, (c_start, 0), (cand_tile, 3))
             c_sq = lax.dynamic_slice(cand_sq, (c_start,), (cand_tile,))
-            # MXU block: [qt, ct]
-            # precision=HIGHEST: TPU matmuls default to bf16, whose
-            # ~0.4% relative error on q·c (~1e9 at mm scale) swamps
-            # real squared distances and drops true neighbors
+            # [qt, ct] block as one matrix product.  precision=HIGHEST:
+            # a bf16 or TF32 product's ~1e-3 relative error on q·c
+            # (~1e9 at mm scale) swamps real squared distances and
+            # drops true neighbors
             d = (
                 q_sq[:, None]
                 - 2.0 * jnp.dot(

@@ -1,6 +1,6 @@
 """Per-point normal and curvature estimation — covariance PCA on device.
 
-TPU-native replacement for Open3D's ``EstimateNormals(
+Data-parallel replacement for Open3D's ``EstimateNormals(
 KDTreeSearchParamHybrid(radius=100, max_nn=50))`` +
 ``OrientNormalsToAlignWithDirection(+Z)`` (tmc3/my_function.h:63-64).
 
@@ -10,7 +10,7 @@ graph (k ≥ max_nn) by masking slots whose distance exceeds the radius.
 The neighborhood covariance's smallest eigenvector is the normal — an
 embarrassingly parallel batch of 3×3 symmetric eigenproblems, solved in
 closed form (trigonometric eigenvalues + cross-product eigenvectors)
-entirely on the VPU: no iteration, no data-dependent control flow.
+elementwise: no iteration, no data-dependent control flow.
 
 Curvature is the standard surface-variation score λ0/(λ0+λ1+λ2), used
 by the segmentation stage to gate seeds.
@@ -34,7 +34,7 @@ __all__ = [
 
 
 @functools.partial(
-    jax.jit, static_argnames=("window", "radius", "orient_z")
+    jax.jit, static_argnames=("window", "radius", "orient_z", "impl")
 )
 def estimate_normals_window(
     spos: jax.Array,
@@ -43,14 +43,15 @@ def estimate_normals_window(
     radius: float = 100.0,
     window: int = 64,
     orient_z: bool = True,
+    impl: str = None,
 ):
     """Normals + curvature from radius-masked Morton-window moments.
 
     The gather-free fast path for Morton-sorted clouds: instead of
-    gathering the kNN neighborhood per point (XLA gathers are slow on
-    TPU), accumulate the first and second moments of all window
-    candidates within ``radius`` via 2W+1 contiguous shifted slices —
-    pure streaming bandwidth + VPU FMAs.  The neighborhood is
+    gathering the kNN neighborhood per point, accumulate the first and
+    second moments of all window candidates within ``radius`` via 2W+1
+    contiguous shifted slices — streaming reads + elementwise FMAs.
+    The neighborhood is
     "window ∩ radius ball" rather than Open3D's "50 nearest ∩ radius"
     (tmc3/my_function.h:63); on dense scans the radius cap dominates
     both, and the resulting covariances agree to noise level.
@@ -59,6 +60,10 @@ def estimate_normals_window(
         spos: float32[N, 3] Morton-sorted positions.
         smask: bool[N].
         radius: neighborhood radius (same units as positions).
+        impl: ``"triton"`` (the stats kernel in radius-only mode: no
+            order statistics, no bisection, one pass) or ``"xla"`` (the
+            shifted-slice form below); None asks
+            :func:`ops.stats_sweep.stats_impl`.
 
     Returns:
         (normals float32[N, 3] unit, +Z oriented; curvature float32[N]).
@@ -66,25 +71,14 @@ def estimate_normals_window(
     n = spos.shape[0]
     w = window
 
-    # TPU: the Pallas stats kernel in radius-only mode (no order
-    # statistics → the bisection phase is skipped; one VMEM-resident
-    # pass).  Same moment accumulation, shared finish.
-    from buildingsegment_tpu.ops.window_sweep import make_slab, pick_tile
+    from buildingsegment_tpu.ops.fused import finish_normals
+    from buildingsegment_tpu.ops.stats_sweep import (
+        stats_impl, stats_sweep_triton,
+    )
 
-    tile = pick_tile(n, 8192)
-    if jax.devices()[0].platform != "cpu" and tile:
-        from buildingsegment_tpu.ops.fused import finish_normals
-        from buildingsegment_tpu.ops.stats_sweep import fused_stats_sweep
-
-        posf = spos.astype(jnp.float32)
-        slab = make_slab(
-            [posf[:, 0], posf[:, 1], posf[:, 2],
-             smask.astype(jnp.float32)],
-            [-3e7, -3e7, -3e7, 0.0], w, tile, rows_out=8,
-        )
-        _, s0, s1, s2 = fused_stats_sweep(
-            slab, n, k=1, w=w, tile=tile, radius=float(radius),
-            max_nn=None,
+    if stats_impl(impl) == "triton":
+        _, s0, s1, s2 = stats_sweep_triton(
+            spos, smask, k=1, window=w, radius=float(radius),
         )
         return finish_normals(s0, s1, s2, orient_z=orient_z)
 
@@ -169,10 +163,10 @@ def canonicalize_normals(normals: jax.Array) -> jax.Array:
     assigns random signs (n_z ≈ ±noise), which breaks signed normal
     averaging and signed cos thresholds.
     """
-    # priority z > y > x on exact ties.  Elementwise select chain —
-    # argmax + take_along_axis costs a ~12 ms per-row gather at 1M
-    # points on TPU; this is 3 compares (semantics identical to
-    # argmax's first-max-index tie rule on the biased keys).
+    # priority z > y > x on exact ties.  Elementwise select chain — 3
+    # compares instead of argmax + take_along_axis (a per-row gather);
+    # semantics identical to argmax's first-max-index tie rule on the
+    # biased keys.
     nx, ny, nz = normals[..., 0], normals[..., 1], normals[..., 2]
     keyx = jnp.abs(nx)
     keyy = jnp.abs(ny) + jnp.asarray(1e-7, normals.dtype)

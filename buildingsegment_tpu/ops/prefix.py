@@ -1,56 +1,16 @@
-"""Integer prefix sum via triangular matmuls — the TPU-native cumsum.
+"""Integer prefix sum of the label compaction and dense renumbering.
 
-``jnp.cumsum`` over a [N] int vector lowers to a long chain of shifted
-adds on TPU (~1.2 ms at 67k inside the region-growing compaction —
-tools/perf_micro3.py); the same prefix is computable exactly on the MXU
-as a lower-triangular [128, 128] matmul per 128-wide row block plus a
-recursive carry over the ~N/128 block totals.  Exactness: values are
-counts, so every partial sum is an integer; float32 holds integers
-exactly below 2^24, far above any label/plane count this codebase
-produces (N ≤ a few million per shard would still only reach 2^21).
-
-Used by the label compaction and dense renumbering in
-``seg.region_grow`` / ``seg.coarse`` on ALL backends — CPU tests
-exercise the identical op so device and oracle paths stay bit-equal.
+Used by ``seg.region_grow`` / ``seg.coarse`` on every backend, so CPU
+tests exercise the identical op.
 """
 
 from __future__ import annotations
 
 import jax.numpy as jnp
-from jax import lax
 
 __all__ = ["prefix_sum_i32"]
 
-_B = 128  # MXU-friendly block width
-
-
-def _prefix_f32(x):
-    """Inclusive prefix over f32[n] of exact small integers."""
-    n = x.shape[0]
-    if n <= _B:
-        # single block: one [n, n] triangular matmul
-        tri = jnp.tril(jnp.ones((n, n), jnp.float32))
-        return jnp.dot(tri, x, precision=lax.Precision.HIGHEST,
-                       preferred_element_type=jnp.float32)
-    pad = (-n) % _B
-    xp = jnp.pad(x, (0, pad))
-    rows = xp.shape[0] // _B
-    m = xp.reshape(rows, _B)
-    # within-block inclusive prefix: out[r, j] = Σ_{i ≤ j} m[r, i]
-    tri = jnp.tril(jnp.ones((_B, _B), jnp.float32))  # [j, i] = i ≤ j
-    within = jnp.dot(m, tri.T, precision=lax.Precision.HIGHEST,
-                     preferred_element_type=jnp.float32)
-    # exclusive carry of the block totals (recurse over [rows])
-    totals = within[:, -1]
-    carry_inc = _prefix_f32(totals)
-    carry_exc = carry_inc - totals
-    out = within + carry_exc[:, None]
-    return out.reshape(-1)[:n]
-
 
 def prefix_sum_i32(x: jnp.ndarray) -> jnp.ndarray:
-    """Inclusive prefix sum of an int32[n] vector of small counts.
-
-    Exact for totals below 2^24 (see module docstring).
-    """
-    return _prefix_f32(x.astype(jnp.float32)).astype(jnp.int32)
+    """Inclusive prefix sum of an int32[n] vector (exact: int32 adds)."""
+    return jnp.cumsum(x.astype(jnp.int32), dtype=jnp.int32)

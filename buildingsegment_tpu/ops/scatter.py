@@ -1,6 +1,6 @@
 """Bilinear scatter-add rasterization — on-device ortho splatting.
 
-TPU-native replacement for the reference's per-point 2×2 splat loop
+Data-parallel replacement for the reference's per-point 2×2 splat loop
 (tmc3/TMC3.cpp:132-148): every point at or above the ground threshold
 deposits bilinear weights into a (height × width) raster — weight into
 the density channel, weight × z into the height channel.  Here all four
@@ -78,9 +78,8 @@ def bilinear_splat(
     )
     w = jnp.concatenate([w00, w10, w01, w11])
 
-    # two flat scatters (measured: combining them into one [4N, 2]
-    # scatter was ~10% slower on TPU — the paired-payload sort beats
-    # two independent flat sorts' cost)
+    # two flat scatters (one [4N, 2] scatter is the alternative; not
+    # measured on the H100 yet)
     density = jnp.zeros(width * height, jnp.float32).at[idx].add(w)
     height_sum = jnp.zeros(width * height, jnp.float32).at[idx].add(
         w * jnp.tile(z, 4)

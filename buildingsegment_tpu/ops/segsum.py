@@ -1,549 +1,93 @@
-"""Pallas segment reductions over a SMALL id table — sort-free.
+"""Segment reductions and lookups over a SMALL id table (plain XLA).
 
-XLA lowers every ``zeros.at[idx].add(payload)`` scatter on TPU to a
-hidden full sort of the N updates (~10-15 ms per scatter at 1M rows).
-When the target table is small (the ≤1024-row plane table), the sum can
-instead be computed as a one-hot matmul per row tile, accumulated in
-VMEM across the sequential Pallas grid:
+The finalize of the multigrid solver (``seg/coarse.py``) and the ortho
+ground histogram (``raster/ortho.py``) reduce N rows into a table of a
+few thousand ids, and read per-id values back.  On the GPU a
+scatter-add into such a table is an atomic add per row, and a lookup is
+a gather from a table that stays in cache; both are single XLA ops.
+Float sums arrive in a different order from run to run on the GPU
+(atomics), so callers compare float table entries with a tolerance and
+integer-valued columns (counts below 2^24) exactly.
 
-    acc[t, c] += Σ_i (id_i == t) · payload[i, c]
-
-The one-hot selector has at most one nonzero per column, so each
-accumulated term is a plain f32 add of an exactly-represented product —
-``precision=HIGHEST`` makes the bf16-split MXU passes reconstruct the
-f32 payload bit-exactly, and the result equals the XLA scatter-add up
-to f32 addition order (bit-exact for the integer-valued count column).
-
-Only id chunks below the caller-supplied live bound are touched, so the
-cost scales with the number of LIVE planes (typically one 128-id
-chunk), not the table capacity.
-
-The same one-hot trick in the other direction (``lut[id_i]``, a gather
-from a small table) is ``table_lookup`` — XLA's general gather runs
-~2 GB/s on TPU regardless of table size.
+Ids outside ``[0, min(n_live, table_cap))`` are dropped (sums) or read
+as 0.0 (lookups).
 """
 
 from __future__ import annotations
 
-import functools
-
-import jax
 import jax.numpy as jnp
-from jax import lax
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-__all__ = ["plane_sums", "table_lookup", "table_lookup_cols"]
-
-_CHUNK = 128  # id chunk = one lane row of the one-hot selector
+__all__ = [
+    "plane_sums", "plane_payload_moment_sums", "table_lookup",
+    "table_lookup_cols",
+]
 
 
-def _segsum_kernel(nchunk_ref, ids_ref, payload_ref, out_ref, acc, *,
-                   tile, n_chunk_cap, cols):
-    ti = pl.program_id(0)
-    nt = pl.num_programs(0)
-    # zero-init the persistent accumulator on the first tile (select on
-    # a read, NOT a @pl.when write — reading the uninitialized scratch
-    # is fine because the select discards it)
-    acc[...] = jnp.where(ti == 0, 0.0, acc[...])
-
-    ids = ids_ref[...]  # f32[tile], integer-valued
-    payload = payload_ref[...]  # f32[tile, cols]
-
-    def chunk(c, _):
-        # one-hot selector for ids in [c·128, (c+1)·128): eqT[t, i]
-        # (Mosaic iota must be integer-typed; convert after)
-        base = (c * _CHUNK).astype(jnp.float32)
-        tgt = base + lax.broadcasted_iota(
-            jnp.int32, (_CHUNK, tile), 0
-        ).astype(jnp.float32)
-        eqT = jnp.where(tgt == ids[None, :], 1.0, 0.0)
-        contrib = lax.dot_general(
-            eqT, payload, (((1,), (0,)), ((), ())),
-            precision=lax.Precision.HIGHEST,
-            preferred_element_type=jnp.float32,
-        )  # [128, cols]
-        r0 = c * _CHUNK
-        acc[pl.ds(r0, _CHUNK), :] = acc[pl.ds(r0, _CHUNK), :] + contrib
-        return 0
-
-    lax.fori_loop(0, nchunk_ref[0], chunk, 0)
-    # flush every step (same constant-index output block persists; the
-    # final step's write is the result)
-    del nt
-    out_ref[...] = acc[...]
+def _live_ids(ids, n_live, cap):
+    """ids with every id outside [0, min(n_live, cap)) mapped to cap."""
+    bound = jnp.minimum(jnp.asarray(n_live, jnp.int32), cap)
+    return jnp.where((ids >= 0) & (ids < bound), ids, cap)
 
 
-@functools.partial(
-    jax.jit, static_argnames=("table_cap", "cols", "tile", "interpret")
-)
-def plane_sums(ids, payload, n_live, *, table_cap, cols=8, tile=8192,
-               interpret=None):
-    """Segment-sum ``payload`` rows by integer id into a small table.
+def plane_sums(ids, payload, n_live, *, table_cap):
+    """Segment-sum ``payload`` rows by integer id.
 
     Args:
-        ids: int32[n] ids in [0, table_cap); rows the caller wants
-            excluded should carry an id ≥ the live bound.
-        payload: f32[n, cols] per-row payload (cols ≤ 128).
-        n_live: scalar int32 — ids ≥ n_live are never accumulated
-            (their table rows stay zero).  May be traced.
-        table_cap: static table capacity (rounded up to 128).
+        ids: int32[n].
+        payload: f32[n, cols].
+        n_live: int32 scalar (may be traced) — ids ≥ n_live are dropped.
+        table_cap: static table size.
 
-    Returns f32[cap128, cols] with ``cap128 = ceil(table_cap/128)·128``;
-    row t = Σ over rows with ids == t of payload.
+    Returns f32[table_cap, cols]; row t = Σ over rows with ids == t.
     """
-    if interpret is None:
-        interpret = jax.devices()[0].platform == "cpu"
-    n = ids.shape[0]
-    n_chunk_cap = -(-table_cap // _CHUNK)
-    cap128 = n_chunk_cap * _CHUNK
-    tile = min(tile, max(128, 1 << (n - 1).bit_length()))
-    n_pad = -(-n // tile) * tile
-    idsf = ids.astype(jnp.float32)
-    if n_pad != n:
-        # pad with an out-of-range id so padding never accumulates
-        idsf = jnp.concatenate(
-            [idsf, jnp.full((n_pad - n,), float(cap128), jnp.float32)]
-        )
-        payload = jnp.concatenate(
-            [payload, jnp.zeros((n_pad - n, cols), payload.dtype)]
-        )
-    n_chunks = jnp.minimum(
-        (n_live.astype(jnp.int32) + _CHUNK - 1) // _CHUNK, n_chunk_cap
-    ).reshape((1,))
-    kernel = functools.partial(
-        _segsum_kernel, tile=tile, n_chunk_cap=n_chunk_cap, cols=cols
-    )
-    return pl.pallas_call(
-        kernel,
-        grid=(n_pad // tile,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec((tile,), lambda ti: (ti,),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((tile, cols), lambda ti: (ti, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((cap128, cols), lambda ti: (0, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((cap128, cols), jnp.float32),
-        scratch_shapes=[pltpu.VMEM((cap128, cols), jnp.float32)],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary",),
-            # the eqT selector is [128, tile] f32 — tiles past 8192
-            # top the 16 MB default scoped-vmem stack (v5e: 128 MB)
-            vmem_limit_bytes=64 * 1024 * 1024,
-        ),
-        interpret=interpret,
-    )(n_chunks, idsf, payload.astype(jnp.float32))
+    rows = _live_ids(ids, n_live, table_cap)
+    return (
+        jnp.zeros((table_cap + 1, payload.shape[1]), jnp.float32)
+        .at[rows]
+        .add(payload.astype(jnp.float32))
+    )[:table_cap]
 
 
-def _lookup_kernel(nchunk_ref, ids_ref, lut_ref, out_ref, *, tile):
-    ids = ids_ref[...]  # f32[tile]
-
-    def chunk(c, acc):
-        base = (c * _CHUNK).astype(jnp.float32)
-        tgt = base + lax.broadcasted_iota(
-            jnp.int32, (_CHUNK, tile), 0
-        ).astype(jnp.float32)
-        eqT = jnp.where(tgt == ids[None, :], 1.0, 0.0)
-        vals = lut_ref[pl.ds(c, 1), :]  # [1, 128]
-        contrib = lax.dot_general(
-            vals, eqT, (((1,), (0,)), ((), ())),
-            precision=lax.Precision.HIGHEST,
-            preferred_element_type=jnp.float32,
-        )  # [1, tile]
-        return acc + contrib[0, :]
-
-    out_ref[...] = lax.fori_loop(
-        0, nchunk_ref[0], chunk, jnp.zeros((tile,), jnp.float32)
-    )
-
-
-@functools.partial(jax.jit, static_argnames=("tile", "interpret"))
-def table_lookup(ids, lut, n_live, *, tile=8192, interpret=None):
-    """``lut[ids]`` through a one-hot matmul (sort- and gather-free).
+def plane_payload_moment_sums(ids, payload, q, n_live, *, table_cap):
+    """Payload sums AND second moments about per-id reference centers.
 
     Args:
-        ids: int32[n] in [0, len(lut)); ids ≥ n_live return 0.0.
-        lut: f32[cap] small table (cap rounded up to 128 internally).
-        n_live: scalar int32 live-id bound (may be traced).
-
-    Returns f32[n].
-    """
-    if interpret is None:
-        interpret = jax.devices()[0].platform == "cpu"
-    n = ids.shape[0]
-    cap = lut.shape[0]
-    n_chunk_cap = -(-cap // _CHUNK)
-    cap128 = n_chunk_cap * _CHUNK
-    if cap128 != cap:
-        lut = jnp.concatenate(
-            [lut.astype(jnp.float32),
-             jnp.zeros((cap128 - cap,), jnp.float32)]
-        )
-    lut2 = lut.astype(jnp.float32).reshape(n_chunk_cap, _CHUNK)
-    tile = min(tile, max(128, 1 << (n - 1).bit_length()))
-    n_pad = -(-n // tile) * tile
-    idsf = ids.astype(jnp.float32)
-    if n_pad != n:
-        idsf = jnp.concatenate(
-            [idsf, jnp.full((n_pad - n,), float(cap128), jnp.float32)]
-        )
-    n_chunks = jnp.minimum(
-        (n_live.astype(jnp.int32) + _CHUNK - 1) // _CHUNK, n_chunk_cap
-    ).reshape((1,))
-    out = pl.pallas_call(
-        functools.partial(_lookup_kernel, tile=tile),
-        grid=(n_pad // tile,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec((tile,), lambda ti: (ti,),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((n_chunk_cap, _CHUNK), lambda ti: (0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((tile,), lambda ti: (ti,),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((n_pad,), jnp.float32),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary",),
-            # the eqT selector is [128, tile] f32 — tiles past 8192
-            # top the 16 MB default scoped-vmem stack (v5e: 128 MB)
-            vmem_limit_bytes=64 * 1024 * 1024,
-        ),
-        interpret=interpret,
-    )(n_chunks, idsf, lut2)
-    if n_pad != n:
-        out = lax.slice(out, (0,), (n,))
-    return out
-
-
-def _lookup_cols_kernel(nchunk_ref, ids_ref, lut_ref, out_ref, *,
-                        tile, cpad):
-    ids = ids_ref[...]  # f32[tile]
-
-    def chunk(c, acc):
-        base = (c * _CHUNK).astype(jnp.float32)
-        tgt = base + lax.broadcasted_iota(
-            jnp.int32, (_CHUNK, tile), 0
-        ).astype(jnp.float32)
-        eqT = jnp.where(tgt == ids[None, :], 1.0, 0.0)
-        # [cpad, 128] chunk of the column-major table; the dynamic
-        # sublane offset stays 8-aligned because cpad is padded to 8
-        vals = lut_ref[pl.ds(c * cpad, cpad), :]
-        contrib = lax.dot_general(
-            vals, eqT, (((1,), (0,)), ((), ())),
-            precision=lax.Precision.HIGHEST,
-            preferred_element_type=jnp.float32,
-        )  # [cpad, tile]
-        return acc + contrib
-
-    out_ref[...] = lax.fori_loop(
-        0, nchunk_ref[0], chunk,
-        jnp.zeros((cpad, tile), jnp.float32),
-    )
-
-
-@functools.partial(jax.jit, static_argnames=("tile", "interpret"))
-def table_lookup_cols(ids, lut, n_live, *, tile=8192, interpret=None):
-    """``lut[ids, :]`` for a small multi-column table, one fused pass.
-
-    The one-hot selector is built ONCE per id chunk and shared by all
-    columns (three separate :func:`table_lookup` calls pay the
-    [128, tile] compare three times — the selector build dominates).
-
-    Args:
-        ids: int32[n] in [0, cap); ids ≥ n_live return 0.0.
-        lut: f32[cap, cols] small table (cols ≤ 8).
-        n_live: scalar int32 live-id bound (may be traced).
-
-    Returns f32[cols, n] — COLUMN-major so consumers peel per-axis
-    rows without a transpose.
-    """
-    if interpret is None:
-        interpret = jax.devices()[0].platform == "cpu"
-    n = ids.shape[0]
-    cap, cols = lut.shape
-    assert cols <= 8, cols
-    cpad = 8
-    n_chunk_cap = -(-cap // _CHUNK)
-    cap128 = n_chunk_cap * _CHUNK
-    # chunk-major [n_chunk_cap * cpad, 128]: chunk c's rows are
-    # [c·cpad, c·cpad + cols)
-    lutp = jnp.zeros((cap128, cpad), jnp.float32)
-    lutp = lutp.at[:cap, :cols].set(lut.astype(jnp.float32))
-    lut3 = (
-        lutp.reshape(n_chunk_cap, _CHUNK, cpad)
-        .transpose(0, 2, 1)
-        .reshape(n_chunk_cap * cpad, _CHUNK)
-    )
-    tile = min(tile, max(128, 1 << (n - 1).bit_length()))
-    n_pad = -(-n // tile) * tile
-    idsf = ids.astype(jnp.float32)
-    if n_pad != n:
-        idsf = jnp.concatenate(
-            [idsf, jnp.full((n_pad - n,), float(cap128), jnp.float32)]
-        )
-    n_chunks = jnp.minimum(
-        (n_live.astype(jnp.int32) + _CHUNK - 1) // _CHUNK, n_chunk_cap
-    ).reshape((1,))
-    out = pl.pallas_call(
-        functools.partial(_lookup_cols_kernel, tile=tile, cpad=cpad),
-        grid=(n_pad // tile,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec((tile,), lambda ti: (ti,),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((n_chunk_cap * cpad, _CHUNK),
-                         lambda ti: (0, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((cpad, tile), lambda ti: (0, ti),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((cpad, n_pad), jnp.float32),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary",),
-            # the eqT selector is [128, tile] f32 — tiles past 8192
-            # top the 16 MB default scoped-vmem stack (v5e: 128 MB)
-            vmem_limit_bytes=64 * 1024 * 1024,
-        ),
-        interpret=interpret,
-    )(n_chunks, idsf, lut3)
-    return out[:cols, :n]
-
-
-def _paymom_kernel(nchunk_ref, ids_ref, payload_ref, qlut_ref,
-                   outA_ref, outM_ref, accA, accM, mrows, *,
-                   tile, n_chunk_cap):
-    ti = pl.program_id(0)
-    accA[...] = jnp.where(ti == 0, 0.0, accA[...])
-    accM[...] = jnp.where(ti == 0, 0.0, accM[...])
-    ids = ids_ref[...]  # f32[tile]
-    A = payload_ref[...]  # f32[tile, 8]: cnt, n̂, p, |p|²
-
-    def onehot(c):
-        base = (c * _CHUNK).astype(jnp.float32)
-        tgt = base + lax.broadcasted_iota(
-            jnp.int32, (_CHUNK, tile), 0
-        ).astype(jnp.float32)
-        return jnp.where(tgt == ids[None, :], 1.0, 0.0)
-
-    # pass A: per-row reference centers q[id] (lane-major rows) — each
-    # row matches exactly one chunk's one-hot, so accumulating over
-    # live chunks is the lookup
-    def chunk_q(c, pc):
-        vals = qlut_ref[pl.ds(c * 8, 8), :]  # [8, 128]
-        return pc + lax.dot_general(
-            vals, onehot(c), (((1,), (0,)), ((), ())),
-            precision=lax.Precision.HIGHEST,
-            preferred_element_type=jnp.float32,
-        )
-
-    pc = lax.fori_loop(
-        0, nchunk_ref[0], chunk_q, jnp.zeros((8, tile), jnp.float32)
-    )
-    # centered offsets, lane-major rows (explicit [T,1]→[1,T]
-    # transposes: 1-D values live on lanes — compact_sweep.py rules)
-    dx = jnp.transpose(A[:, 4:5]) - pc[0:1, :]
-    dy = jnp.transpose(A[:, 5:6]) - pc[1:2, :]
-    dz = jnp.transpose(A[:, 6:7]) - pc[2:3, :]
-    # moment rows staged through a scratch ref (full-row stores only)
-    mrows[0:1, :] = dx * dx
-    mrows[1:2, :] = dy * dy
-    mrows[2:3, :] = dz * dz
-    mrows[3:4, :] = dx * dy
-    mrows[4:5, :] = dx * dz
-    mrows[5:6, :] = dy * dz
-    mrows[6:7, :] = jnp.zeros((1, tile), jnp.float32)
-    mrows[7:8, :] = jnp.zeros((1, tile), jnp.float32)
-    mom = mrows[...]  # [8, tile]
-
-    def chunk_acc(c, _):
-        eqT = onehot(c)
-        contribA = lax.dot_general(
-            eqT, A, (((1,), (0,)), ((), ())),
-            precision=lax.Precision.HIGHEST,
-            preferred_element_type=jnp.float32,
-        )  # [128, 8]
-        contribM = lax.dot_general(
-            eqT, mom, (((1,), (1,)), ((), ())),
-            precision=lax.Precision.HIGHEST,
-            preferred_element_type=jnp.float32,
-        )  # [128, 8]
-        r0 = c * _CHUNK
-        accA[pl.ds(r0, _CHUNK), :] = accA[pl.ds(r0, _CHUNK), :] + contribA
-        accM[pl.ds(r0, _CHUNK), :] = accM[pl.ds(r0, _CHUNK), :] + contribM
-        return 0
-
-    lax.fori_loop(0, nchunk_ref[0], chunk_acc, 0)
-    outA_ref[...] = accA[...]
-    outM_ref[...] = accM[...]
-
-
-@functools.partial(
-    jax.jit, static_argnames=("table_cap", "tile", "interpret")
-)
-def plane_payload_moment_sums(ids, payload, q, n_live, *, table_cap,
-                              tile=8192, interpret=None):
-    """Payload sums AND second moments about per-plane reference
-    centers, one fused pass.
-
-    The finalize's exact centered-moments pass needs each plane's OWN
-    first-pass center — two passes over N.  Centering about any FIXED
-    per-plane reference q (here: the coarse solve's plane centers) and
-    shifting by the parallel-axis rule at [P] scale is algebraically
-    identical:  M_c = M_q − cnt·(c−q)(c−q)ᵀ.  f32 error ~(p−q)²·2⁻²⁴
-    per term stays ≪ the RMS gates while |c−q| ≲ the plane extent —
-    true by construction (both are member means of the same plane).
-
-    Args:
-        ids: int32[n] ids in [0, table_cap); excluded rows ≥ n_live.
+        ids: int32[n]; ids ≥ n_live are dropped.
         payload: f32[n, 8] rows [cnt, n̂, p, |p|²] (p in cols 4:7).
-        q: f32[cap, 3] per-id reference centers (coarse plane table).
-        n_live: traced live bound.
+        q: f32[table_cap, 3] per-id reference centers.
 
-    Returns (sums f32[cap128, 8], moments f32[cap128, 6]) where
-    moments cols are (xx, yy, zz, xy, xz, yz) about q[id].
+    Returns (sums f32[table_cap, 8], moments f32[table_cap, 6]), moment
+    columns (xx, yy, zz, xy, xz, yz) of p − q[id].  Centering about a
+    per-id center keeps the f32 sums of mm-scale coordinates from
+    cancelling; a parallel-axis shift moves them to any other center.
     """
-    if interpret is None:
-        interpret = jax.devices()[0].platform == "cpu"
-    n = ids.shape[0]
-    n_chunk_cap = -(-table_cap // _CHUNK)
-    cap128 = n_chunk_cap * _CHUNK
-    # chunk-major lane-major q table: chunk c rows [c·8, c·8+3)
-    qp = jnp.zeros((cap128, 8), jnp.float32)
-    qp = qp.at[: q.shape[0], :3].set(q.astype(jnp.float32))
-    qlut = (
-        qp.reshape(n_chunk_cap, _CHUNK, 8)
-        .transpose(0, 2, 1)
-        .reshape(n_chunk_cap * 8, _CHUNK)
+    rows = _live_ids(ids, n_live, table_cap)
+    qp = jnp.concatenate([q.astype(jnp.float32),
+                          jnp.zeros((1, 3), jnp.float32)])
+    d = payload[:, 4:7].astype(jnp.float32) - qp[rows]
+    mom = jnp.stack(
+        [d[:, 0] * d[:, 0], d[:, 1] * d[:, 1], d[:, 2] * d[:, 2],
+         d[:, 0] * d[:, 1], d[:, 0] * d[:, 2], d[:, 1] * d[:, 2]], axis=1
     )
-    tile = min(tile, max(128, 1 << (n - 1).bit_length()))
-    n_pad = -(-n // tile) * tile
-    idsf = ids.astype(jnp.float32)
-    payload = payload.astype(jnp.float32)
-    if n_pad != n:
-        idsf = jnp.concatenate(
-            [idsf, jnp.full((n_pad - n,), float(cap128), jnp.float32)]
-        )
-        payload = jnp.concatenate(
-            [payload, jnp.zeros((n_pad - n, 8), jnp.float32)]
-        )
-    n_chunks = jnp.minimum(
-        (n_live.astype(jnp.int32) + _CHUNK - 1) // _CHUNK, n_chunk_cap
-    ).reshape((1,))
-    outA, outM = pl.pallas_call(
-        functools.partial(
-            _paymom_kernel, tile=tile, n_chunk_cap=n_chunk_cap
-        ),
-        grid=(n_pad // tile,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec((tile,), lambda ti: (ti,),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((tile, 8), lambda ti: (ti, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((n_chunk_cap * 8, _CHUNK), lambda ti: (0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((cap128, 8), lambda ti: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((cap128, 8), lambda ti: (0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((cap128, 8), jnp.float32),
-            jax.ShapeDtypeStruct((cap128, 8), jnp.float32),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((cap128, 8), jnp.float32),
-            pltpu.VMEM((cap128, 8), jnp.float32),
-            pltpu.VMEM((8, tile), jnp.float32),
-        ],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary",),
-            # the fused body (two chunk loops + moment rows) tops the
-            # default 16 MB scoped-vmem stack at tile 8192 (measured
-            # 24.8 MB via tools/aot_tpu.py); v5e has 128 MB physical
-            vmem_limit_bytes=64 * 1024 * 1024,
-        ),
-        interpret=interpret,
-    )(n_chunks, idsf, payload, qlut)
-    return outA, outM[:, :6]
+    return (plane_sums(rows, payload, table_cap, table_cap=table_cap),
+            plane_sums(rows, mom, table_cap, table_cap=table_cap))
 
 
-def _segsum_t_kernel(nchunk_ref, ids_ref, payT_ref, out_ref, acc, *,
-                     tile):
-    """Transposed-accumulator segsum experiment: contrib [8, 128] =
-    dot(payT [8,T], eqT [128,T]ᵀ) keeps the OUTPUT lane dim at 128
-    (the standard kernel's [128, 8] contrib has 8-lane outputs)."""
-    ti = pl.program_id(0)
-    acc[...] = jnp.where(ti == 0, 0.0, acc[...])
-    ids = ids_ref[...]  # f32[tile]
-    payT = payT_ref[...]  # f32[8, tile]
-
-    def chunk(c, _):
-        base = (c * _CHUNK).astype(jnp.float32)
-        tgt = base + lax.broadcasted_iota(
-            jnp.int32, (_CHUNK, tile), 0
-        ).astype(jnp.float32)
-        eqT = jnp.where(tgt == ids[None, :], 1.0, 0.0)
-        contrib = lax.dot_general(
-            payT, eqT, (((1,), (1,)), ((), ())),
-            precision=lax.Precision.HIGHEST,
-            preferred_element_type=jnp.float32,
-        )  # [8, 128]
-        r0 = c * _CHUNK
-        acc[:, pl.ds(r0, _CHUNK)] = acc[:, pl.ds(r0, _CHUNK)] + contrib
-        return 0
-
-    lax.fori_loop(0, nchunk_ref[0], chunk, 0)
-    out_ref[...] = acc[...]
+def table_lookup(ids, lut, n_live):
+    """``lut[ids]`` as f32[n]; ids outside [0, n_live) read 0.0."""
+    cap = lut.shape[0]
+    rows = _live_ids(ids, n_live, cap)
+    return jnp.concatenate(
+        [lut.astype(jnp.float32), jnp.zeros((1,), jnp.float32)]
+    )[rows]
 
 
-@functools.partial(
-    jax.jit, static_argnames=("table_cap", "tile", "interpret")
-)
-def plane_sums_t(ids, payT, n_live, *, table_cap, tile=8192,
-                 interpret=None):
-    """Transposed-layout segment sum: takes payload as [8, n] rows,
-    returns the table as [8, cap128] (transpose of plane_sums)."""
-    if interpret is None:
-        interpret = jax.devices()[0].platform == "cpu"
-    n = ids.shape[0]
-    n_chunk_cap = -(-table_cap // _CHUNK)
-    cap128 = n_chunk_cap * _CHUNK
-    tile = min(tile, max(1024, 1 << (n - 1).bit_length()))
-    n_pad = -(-n // tile) * tile
-    idsf = ids.astype(jnp.float32)
-    if n_pad != n:
-        idsf = jnp.concatenate(
-            [idsf, jnp.full((n_pad - n,), float(cap128), jnp.float32)]
-        )
-        payT = jnp.concatenate(
-            [payT, jnp.zeros((8, n_pad - n), payT.dtype)], axis=1
-        )
-    n_chunks = jnp.minimum(
-        (n_live.astype(jnp.int32) + _CHUNK - 1) // _CHUNK, n_chunk_cap
-    ).reshape((1,))
-    return pl.pallas_call(
-        functools.partial(_segsum_t_kernel, tile=tile),
-        grid=(n_pad // tile,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec((tile,), lambda ti: (ti,),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((8, tile), lambda ti: (0, ti),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((8, cap128), lambda ti: (0, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((8, cap128), jnp.float32),
-        scratch_shapes=[pltpu.VMEM((8, cap128), jnp.float32)],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary",),
-            vmem_limit_bytes=64 * 1024 * 1024,
-        ),
-        interpret=interpret,
-    )(n_chunks, idsf, payT.astype(jnp.float32))
+def table_lookup_cols(ids, lut, n_live):
+    """``lut[ids, :]`` for a multi-column table, returned COLUMN-major
+    as f32[cols, n]; ids outside [0, n_live) read 0.0."""
+    cap, cols = lut.shape
+    rows = _live_ids(ids, n_live, cap)
+    padded = jnp.concatenate(
+        [lut.astype(jnp.float32), jnp.zeros((1, cols), jnp.float32)]
+    )
+    return padded[rows].T

@@ -1,7 +1,7 @@
-"""Pallas fused stats sweep: k-th-NN distance + normal moments, no top-k.
+"""Stats-only window sweep: k-th-NN distance + normal moments, no top-k.
 
-The production windowized pipeline never consumes sorted kNN index
-lists: segmentation needs only
+The windowized pipeline never consumes sorted kNN index lists:
+segmentation needs only
 
   (a) the squared k-th-NN distance per point — the seed ball of the
       depth-0 strictness rule (tmc3/my_function.cpp:238 re-expressed in
@@ -11,31 +11,26 @@ lists: segmentation needs only
       neighborhood (tmc3/my_function.h:63,
       KDTreeSearchParamHybrid(radius=100, max_nn=50)).
 
-Both are ORDER STATISTICS of the ±W candidate distance row.  The
-general fused sweep (ops/fused.py) ranks candidates with ``lax.top_k``
-over 2W=128 entries, which XLA lowers to a complete per-row sort —
-~25 ms of the ~30 ms sweep at 1M points.  This kernel instead computes
-the two order statistics exactly with a vectorized binary search on the
-float32 bit patterns (non-negative floats order identically to their
-int32 bit patterns), entirely on a VMEM-resident distance block:
-
-  phase 1  compute the [2W, T] squared-distance block into VMEM
-           (invalid candidates = +inf)
-  phase 2  31-step bisection on bit patterns for the rank-(k-1) and
-           rank-(max_nn-1) statistics (both searches share the loop)
-  phase 3  radius ∩ hybrid-cap masked moment accumulation (count,
-           first and second moments of the neighbor offsets) — the
-           same running sums the XLA sweep produces
-
-HBM traffic is one 16-B/point slab read + 11 f32 outputs; everything
-else stays in VMEM.  The moment finish (covariance eigensolve →
-normals + curvature) remains in XLA — it is [N]-elementwise and fuses.
+Both are ORDER STATISTICS of the ±W candidate distance row.  The XLA
+form (:func:`ops.fused.knn_normals_window_sorted`) ranks every row with
+``lax.top_k`` and keeps one column.  The GPU kernel here (Pallas through
+Triton) finds the two order statistics without sorting: one program
+owns ``block_rows`` consecutive sorted rows, gathers their
+``[block_rows, 2W]`` candidate tile (padded to a power of two), and
+runs a 31-step bisection on the float32 bit patterns — non-negative
+floats order exactly like their int32 bit patterns — for the
+rank-(k−1) and rank-(max_nn−1) values at once.  The radius ∩ cap
+masked moments are accumulated from the same tile, so no ``[N, 2W]``
+array ever reaches device memory.  Distances stay in diff form on the
+CUDA cores (no tensor cores): exact, like the XLA form.
 
 Exactness: the bisection returns the exact bit pattern of the r-th
-smallest entry (smallest t with count(d ≤ t) ≥ r), which is exactly
-``lax.top_k``'s value; ties behave identically because only the VALUE
-is consumed.  Fewer than r finite candidates → +inf, mapped to the
-XLA path's conventions (k-th distance → 0.0, cap → no-op).
+smallest entry (the smallest t with count(d ≤ t) ≥ r), i.e. exactly
+``lax.top_k``'s value; ties are immaterial because only the VALUE is
+consumed.  Fewer than r finite candidates → +inf, mapped to the XLA
+conventions (k-th distance → 0.0, cap → no-op).  The moment sums are
+the same terms added in another order, so normals and curvature agree
+to float32 rounding.
 """
 
 from __future__ import annotations
@@ -46,354 +41,183 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
 
-__all__ = ["knn_normals_window_stats", "fused_stats_sweep"]
+from buildingsegment_tpu.ops.fused import (
+    finish_normals,
+    knn_normals_window_sorted,
+)
+from buildingsegment_tpu.utils.platform import op_impl
 
-_ROWS = 8  # px py pz mask (4 used; 8 for DMA sublane alignment)
+__all__ = ["knn_normals_window_stats", "stats_impl", "stats_sweep_triton"]
+
 _INF_BITS = 0x7F800000
+_FAR = -3e7  # sentinel coordinate of padding rows (mask 0 as well)
+_N_OUT = 11  # dk, s0, s1 (3), s2 (6)
 
 
-def _lane_pad(tile, w):
-    return (-(tile + 2 * w)) % 128
+def stats_impl(impl: str = None) -> str:
+    """The stats sweep's implementation, ``"triton"`` or ``"xla"``:
+    ``impl`` when given, else :func:`utils.platform.op_impl`'s choice.
+    Every caller with a Triton and an XLA route resolves it here."""
+    if impl is None:
+        impl = op_impl("stats_sweep")
+    if impl not in ("triton", "xla"):
+        raise ValueError(f"unknown stats sweep implementation {impl!r}")
+    return impl
 
 
-def _bitonic_rows(x, m):
-    """Sort a [rows, c] block ascending along axis 0 (pad rows to m).
+def _pow2_at_least(x: int) -> int:
+    return 1 << max(x - 1, 0).bit_length()
 
-    Batcher's bitonic network expressed as whole-array reshapes —
-    compare-exchange partners i ↔ i^j are rows i and i+j of the
-    [m//2j, 2, j, c] view, and the ascending/descending direction of a
-    pair depends only on its outer block index (bit log2(k) of i lies
-    strictly above the h/r bits, so it is constant per block).  All
-    shapes static; lane (minor) dim untouched — Mosaic lowers the
-    leading-dim reshapes as row relabeling, no data movement across
-    lanes.  Cost: ~log²(m)/2 stages of one min+max over [m, c], vs the
-    bisection's 31 × 2 × (count + reduce) — ~4× fewer vector ops, and
-    it yields EVERY order statistic at once.
+
+def _stats_kernel(x_ref, y_ref, z_ref, m_ref, *out_refs, block_rows, cw,
+                  w, r_k, r_cap, r2):
+    """One program: rows [i·B, (i+1)·B) of the sorted cloud.
+
+    The refs are the padded component rows (``w`` fill rows in front);
+    candidate column c ∈ [0, 2w) is offset c − w (c < w) or c − w + 1
+    (c ≥ w), so the self row is never a candidate, and columns ≥ 2w are
+    the power-of-two padding of the tile.
     """
-    rows, c = x.shape
-    if rows < m:
-        x = jnp.concatenate(
-            [x, jnp.full((m - rows, c), _INF_BITS, x.dtype)], axis=0
+    base = pl.program_id(0) * block_rows
+    shape = (block_rows, cw)
+    q = lax.broadcasted_iota(jnp.int32, shape, 0)
+    c = lax.broadcasted_iota(jnp.int32, shape, 1)
+    cidx = base + q + c + (c >= w).astype(jnp.int32)
+    qsl = pl.ds(base + w, block_rows)
+    qx, qy, qz, qm = x_ref[qsl], y_ref[qsl], z_ref[qsl], m_ref[qsl]
+
+    def offsets():
+        return (x_ref[cidx] - qx[:, None], y_ref[cidx] - qy[:, None],
+                z_ref[cidx] - qz[:, None])
+
+    dx, dy, dz = offsets()
+    valid = (c < 2 * w) & (m_ref[cidx] > 0.5) & (qm[:, None] > 0.5)
+    d2 = jnp.where(valid, dx * dx + dy * dy + dz * dz, jnp.inf)
+
+    if r_k or r_cap:
+        bits = lax.bitcast_convert_type(d2, jnp.int32)
+
+        def step(lo, hi, r):
+            mid = lo + ((hi - lo) >> 1)
+            cnt = jnp.sum((bits <= mid[:, None]).astype(jnp.int32), axis=1)
+            ge = cnt >= r
+            return jnp.where(ge, lo, mid + 1), jnp.where(ge, mid, hi)
+
+        def bisect(_, st):
+            lo1, hi1, lo2, hi2 = st
+            lo1, hi1 = step(lo1, hi1, r_k)
+            if r_cap:
+                lo2, hi2 = step(lo2, hi2, r_cap)
+            return lo1, hi1, lo2, hi2
+
+        zeros = jnp.zeros((block_rows,), jnp.int32)
+        tops = jnp.full((block_rows,), _INF_BITS, jnp.int32)
+        dk_bits, _, cap_bits, _ = lax.fori_loop(
+            0, 31, bisect, (zeros, tops, zeros, tops)
         )
-    k = 2
-    while k <= m:
-        j = k // 2
-        while j >= 1:
-            xr = x.reshape(m // (2 * j), 2, j, c)
-            a, b = xr[:, 0], xr[:, 1]
-            lo = jnp.minimum(a, b)
-            hi = jnp.maximum(a, b)
-            blk = lax.broadcasted_iota(
-                jnp.int32, (m // (2 * j), 1, 1), 0
+        dk = lax.bitcast_convert_type(dk_bits, jnp.float32)
+        dk = jnp.where(dk_bits >= _INF_BITS, 0.0, dk)
+        r_eff2 = jnp.float32(r2)
+        if r_cap:
+            r_eff2 = jnp.minimum(
+                r_eff2, lax.bitcast_convert_type(cap_bits, jnp.float32)
             )
-            asc = (blk * (2 * j)) & k == 0
-            first = jnp.where(asc, lo, hi)
-            second = jnp.where(asc, hi, lo)
-            x = jnp.stack([first, second], axis=1).reshape(m, c)
-            j //= 2
-        k *= 2
-    return x
+    else:
+        # radius-only moments (estimate_normals_window): no order
+        # statistics, the bisection is skipped entirely
+        dk = jnp.zeros((block_rows,), jnp.float32)
+        r_eff2 = jnp.float32(r2)
 
-
-def _stats_kernel(slab_hbm, out_ref, slab, dbits, sem, *scratch, tile, w,
-                  r_k, r_cap, r2, mxu_count=False, store_offsets=False,
-                  rank_mode="bisect", sym=False):
-    if store_offsets:
-        dxs, dys, dzs = scratch
-    ti = pl.program_id(0)
-    dma = pltpu.make_async_copy(
-        slab_hbm.at[:, pl.ds(ti * tile, tile + 2 * w + _lane_pad(tile, w))],
-        slab, sem,
+    # invalid candidates carry +inf and fail the finite radius/cap test
+    uw = jnp.where(d2 <= jnp.broadcast_to(r_eff2, (block_rows,))[:, None],
+                   1.0, 0.0)
+    wx, wy, wz = dx * uw, dy * uw, dz * uw
+    sums = (
+        dk,
+        qm + jnp.sum(uw, axis=1),  # self: weight 1, offset 0
+        jnp.sum(wx, axis=1), jnp.sum(wy, axis=1), jnp.sum(wz, axis=1),
+        jnp.sum(wx * dx, axis=1), jnp.sum(wy * dy, axis=1),
+        jnp.sum(wz * dz, axis=1), jnp.sum(wx * dy, axis=1),
+        jnp.sum(wx * dz, axis=1), jnp.sum(wy * dz, axis=1),
     )
-    dma.start()
-    dma.wait()
+    for ref, val in zip(out_refs, sums):
+        ref[...] = val
 
-    def row(i, s):
-        return slab[i, pl.ds(s, tile)]
 
-    px, py, pz = row(0, w), row(1, w), row(2, w)
-    mask0 = row(3, w)
-    inf = jnp.float32(jnp.inf)
+def _padded_rows(spos, smask, w, tail, axis_name):
+    """Component rows with ``w`` leading fill rows and ``tail`` trailing
+    ones; under ``shard_map`` the ±w rows next to the shard come from
+    the halo exchange instead of fill."""
+    cols = [spos[:, 0], spos[:, 1], spos[:, 2], smask.astype(jnp.float32)]
+    fills = [_FAR, _FAR, _FAR, 0.0]
+    if axis_name is not None:
+        from buildingsegment_tpu.dist.halo import halo_pad
 
-    # ---- phase 1: [2W, tile] squared-distance block (invalid → inf)
-    if sym:
-        # Symmetry-halved (the _seed_kernel_sym trick): each unordered
-        # pair {j, j+d} is computed ONCE per shift d = 1..w over the
-        # extended lane range [0, L); the rows for offsets ±d are
-        # lane-shifted slices of the same pair row.  d² and the
-        # pair-validity mask are direction-symmetric, and the mirrored
-        # offset is the exact negation (IEEE subtraction rounds
-        # sign-symmetrically), so the block is BIT-IDENTICAL to the
-        # 2w-shift form at roughly half the misaligned reads + math.
-        #   positive offset +d → slot w+d−1, query lane i = pair lane
-        #     i+w; negative offset −d → slot w−d, query lane i = pair
-        #     lane i+w−d (the pair's lower index is the candidate).
-        L = tile + w
-
-        def prow(i, s):
-            return slab[i, pl.ds(s, L)]
-
-        qx, qy, qz, qm = prow(0, 0), prow(1, 0), prow(2, 0), prow(3, 0)
-        for d in range(1, w + 1):
-            dx = prow(0, d) - qx
-            dy = prow(1, d) - qy
-            dz = prow(2, d) - qz
-            d2 = dx * dx + dy * dy + dz * dz
-            valid = (prow(3, d) > 0.5) & (qm > 0.5)
-            pd2 = lax.bitcast_convert_type(
-                jnp.where(valid, d2, inf), jnp.int32
-            )
-            dbits[w + d - 1, :] = lax.slice(pd2, (w,), (w + tile,))
-            dbits[w - d, :] = lax.slice(pd2, (w - d,), (w - d + tile,))
-            if store_offsets:
-                dxs[w + d - 1, :] = lax.slice(dx, (w,), (w + tile,))
-                dys[w + d - 1, :] = lax.slice(dy, (w,), (w + tile,))
-                dzs[w + d - 1, :] = lax.slice(dz, (w,), (w + tile,))
-                dxs[w - d, :] = -lax.slice(dx, (w - d,), (w - d + tile,))
-                dys[w - d, :] = -lax.slice(dy, (w - d,), (w - d + tile,))
-                dzs[w - d, :] = -lax.slice(dz, (w - d,), (w - d + tile,))
-    else:
-        for slot in range(2 * w):
-            start = slot if slot < w else slot + 1
-            dx = row(0, start) - px
-            dy = row(1, start) - py
-            dz = row(2, start) - pz
-            d2 = dx * dx + dy * dy + dz * dz
-            valid = (row(3, start) > 0.5) & (mask0 > 0.5)
-            dbits[slot, :] = lax.bitcast_convert_type(
-                jnp.where(valid, d2, inf), jnp.int32
-            )
-            if store_offsets:
-                # aligned phase-3 reads: the lane-offset slab loads
-                # above are the misaligned (vror-heavy) part of the
-                # sweep; staging the offsets once lets phase 3 stream
-                # [slot, :]
-                dxs[slot, :] = dx
-                dys[slot, :] = dy
-                dzs[slot, :] = dz
-
-    if (r_k or r_cap) and rank_mode == "bitonic":
-        # ---- phase 2 (bitonic variant): fully sort each column of the
-        # distance block along the candidate axis with a Batcher
-        # network, then read the two wanted ranks directly.  Exactness
-        # matches the bisection (both return the r-th smallest bit
-        # pattern; only values are consumed, so ties are immaterial).
-        m = 1
-        while m < 2 * w:
-            m *= 2
-        cw = min(tile, 2048)
-        dk_parts, cap_parts = [], []
-        for cc in range(tile // cw):
-            srt = _bitonic_rows(dbits[:, pl.ds(cc * cw, cw)], m)
-            # r == 0 (e.g. k = 1) matches the bisection's fixed point
-            # at bits 0 → reported as 0.0
-            dk_parts.append(
-                srt[r_k - 1, :] if r_k
-                else jnp.zeros((cw,), jnp.int32)
-            )
-            cap_parts.append(
-                srt[r_cap - 1, :] if r_cap
-                else jnp.full((cw,), _INF_BITS, jnp.int32)
-            )
-        dk_bits = jnp.concatenate(dk_parts)
-        dk_f = lax.bitcast_convert_type(dk_bits, jnp.float32)
-        out_ref[0, :] = jnp.where(dk_bits >= _INF_BITS, 0.0, dk_f)
-        if r_cap:
-            cap_f = lax.bitcast_convert_type(
-                jnp.concatenate(cap_parts), jnp.float32
-            )
-            r_eff2 = jnp.minimum(jnp.float32(r2), cap_f)
-        else:
-            r_eff2 = jnp.full((tile,), jnp.float32(r2), jnp.float32)
-    elif r_k or r_cap:
-        # ---- phase 2: bisection for the two order statistics.
-        # Non-negative f32 order == int32 bit-pattern order; find the
-        # smallest t with count(bits ≤ t) ≥ r — the r-th smallest.
-        # The search runs over ≤2048-wide COLUMN CHUNKS of the distance
-        # block: the 31-iteration loop over a [2W, 8192] block measured
-        # ~3x slower than 4 chunked loops over [2W, 2048] (working-set
-        # thrash), while big tiles keep the grid-step count low.
-        cw = min(tile, 2048)
-        w2_ = 2 * w
-        ones_row = jnp.ones((1, w2_), jnp.float32)
-
-        def bisect_chunk(cc):
-            def count_le(db, mid):
-                """Per-column count of rows with db ≤ mid."""
-                ind = jnp.where(db <= mid[None, :], 1.0, 0.0)
-                if mxu_count:
-                    # 128-row reduction as a [1, 2W] × [2W, cw] matmul.
-                    # MEASURED DEAD END (tools/perf_stats_lab.py): the
-                    # M=1 matmul wastes the 128×128 systolic array —
-                    # w64_t8192 went 26.0 → 36.6 ms.  Kept behind the
-                    # flag so nobody re-tries it blind.
-                    return lax.dot_general(
-                        ones_row, ind, (((1,), (0,)), ((), ())),
-                        precision=lax.Precision.HIGHEST,
-                        preferred_element_type=jnp.float32,
-                    )[0].astype(jnp.int32)
-                return jnp.sum(ind.astype(jnp.int32), axis=0)
-
-            def bisect(i, st):
-                lo1, hi1, lo2, hi2 = st
-                mid1 = lo1 + ((hi1 - lo1) >> 1)
-                mid2 = lo2 + ((hi2 - lo2) >> 1)
-                db = dbits[:, pl.ds(cc * cw, cw)]
-                c1 = count_le(db, mid1)
-                ge1 = c1 >= r_k
-                lo1 = jnp.where(ge1, lo1, mid1 + 1)
-                hi1 = jnp.where(ge1, mid1, hi1)
-                if r_cap:
-                    c2 = count_le(db, mid2)
-                    ge2 = c2 >= r_cap
-                    lo2 = jnp.where(ge2, lo2, mid2 + 1)
-                    hi2 = jnp.where(ge2, mid2, hi2)
-                return lo1, hi1, lo2, hi2
-
-            zeros = jnp.zeros((cw,), jnp.int32)
-            tops = jnp.full((cw,), _INF_BITS, jnp.int32)
-            _, dk_b, _, cap_b = lax.fori_loop(
-                0, 31, bisect, (zeros, tops, zeros, tops)
-            )
-            return dk_b, cap_b
-
-        parts = [bisect_chunk(cc) for cc in range(tile // cw)]
-        dk_bits = jnp.concatenate([p[0] for p in parts])
-        cap_bits = jnp.concatenate([p[1] for p in parts])
-        dk_f = lax.bitcast_convert_type(dk_bits, jnp.float32)
-        # fewer than r_k finite candidates → XLA kNN path reports 0.0
-        out_ref[0, :] = jnp.where(dk_bits >= _INF_BITS, 0.0, dk_f)
-        if r_cap:
-            cap_f = lax.bitcast_convert_type(cap_bits, jnp.float32)
-            r_eff2 = jnp.minimum(jnp.float32(r2), cap_f)
-        else:
-            r_eff2 = jnp.full((tile,), jnp.float32(r2), jnp.float32)
-    else:
-        # pure radius-ball moments (estimate_normals_window): no order
-        # statistics — the 31-step bisection is skipped entirely
-        out_ref[0, :] = jnp.zeros((tile,), jnp.float32)
-        r_eff2 = jnp.full((tile,), jnp.float32(r2), jnp.float32)
-
-    # ---- phase 3: moments over radius ∩ cap (self: weight 1, offset 0)
-    s0 = mask0
-    s1x = jnp.zeros((tile,), jnp.float32)
-    s1y = jnp.zeros((tile,), jnp.float32)
-    s1z = jnp.zeros((tile,), jnp.float32)
-    sxx = jnp.zeros((tile,), jnp.float32)
-    syy = jnp.zeros((tile,), jnp.float32)
-    szz = jnp.zeros((tile,), jnp.float32)
-    sxy = jnp.zeros((tile,), jnp.float32)
-    sxz = jnp.zeros((tile,), jnp.float32)
-    syz = jnp.zeros((tile,), jnp.float32)
-    for slot in range(2 * w):
-        start = slot if slot < w else slot + 1
-        if store_offsets:
-            dx = dxs[slot, :]
-            dy = dys[slot, :]
-            dz = dzs[slot, :]
-        else:
-            dx = row(0, start) - px
-            dy = row(1, start) - py
-            dz = row(2, start) - pz
-        d2 = lax.bitcast_convert_type(dbits[slot, :], jnp.float32)
-        # invalid candidates carry +inf and fail the (finite) cap
-        uw = jnp.where(d2 <= r_eff2, 1.0, 0.0).astype(jnp.float32)
-        s0 = s0 + uw
-        s1x = s1x + dx * uw
-        s1y = s1y + dy * uw
-        s1z = s1z + dz * uw
-        sxx = sxx + dx * dx * uw
-        syy = syy + dy * dy * uw
-        szz = szz + dz * dz * uw
-        sxy = sxy + dx * dy * uw
-        sxz = sxz + dx * dz * uw
-        syz = syz + dy * dz * uw
-    out_ref[1, :] = s0
-    out_ref[2, :] = s1x
-    out_ref[3, :] = s1y
-    out_ref[4, :] = s1z
-    out_ref[5, :] = sxx
-    out_ref[6, :] = syy
-    out_ref[7, :] = szz
-    out_ref[8, :] = sxy
-    out_ref[9, :] = sxz
-    out_ref[10, :] = syz
-    out_ref[11, :] = jnp.zeros((tile,), jnp.float32)
-    out_ref[12, :] = jnp.zeros((tile,), jnp.float32)
-    out_ref[13, :] = jnp.zeros((tile,), jnp.float32)
-    out_ref[14, :] = jnp.zeros((tile,), jnp.float32)
-    out_ref[15, :] = jnp.zeros((tile,), jnp.float32)
+        return [
+            jnp.concatenate([halo_pad(a, w, axis_name),
+                             jnp.full((tail - w,), f, jnp.float32)])
+            for a, f in zip(cols, fills)
+        ]
+    return [
+        jnp.concatenate([jnp.full((w,), f, jnp.float32), a,
+                         jnp.full((tail,), f, jnp.float32)])
+        for a, f in zip(cols, fills)
+    ]
 
 
 @functools.partial(
     jax.jit,
-    static_argnames=("n", "k", "w", "tile", "max_nn", "radius",
-                     "interpret", "store_offsets", "rank_mode", "sym"),
+    static_argnames=("k", "window", "radius", "max_nn", "axis_name",
+                     "block_rows", "num_warps", "interpret"),
 )
-def fused_stats_sweep(slab, n, *, k, w, tile, radius,
-                      max_nn=None, interpret=False,
-                      store_offsets=False, rank_mode="bisect",
-                      sym=False):
-    """Run the stats kernel over a pre-built slab.
+def stats_sweep_triton(
+    spos, smask, *, k, window, radius, max_nn=None, axis_name=None,
+    block_rows=32, num_warps=4, interpret=False,
+):
+    """The Triton stats kernel on Morton-sorted rows.
 
-    Slab rows (``window_sweep.make_slab``, rows_out=8): 0-2 position,
-    3 mask.  Returns (kth_sq_dist f32[n], s0 f32[n], s1 f32[n,3],
-    s2 f32[n,6]); s2 rows are (xx, yy, zz, xy, xz, yz) about the point
-    itself — identical to the accumulation of ops/fused.py's sweep.
+    Returns (kth_sq_dist f32[n], s0 f32[n], s1 f32[n, 3], s2 f32[n, 6]):
+    ``kth_sq_dist`` is 0.0 where fewer than k−1 candidates exist; the
+    moments are about each point itself, s2 columns (xx, yy, zz, xy,
+    xz, yz) — the accumulation of ops/fused.py's sweep.
     """
-    n_pad = -(-n // tile) * tile
-    w2 = 2 * w
-    cap_active = max_nn is not None and (max_nn - 1) < w2
+    n = spos.shape[0]
+    w = window
+    if 2 * w < k - 1:
+        raise ValueError(f"window {w} too small for k={k}")
+    cw = _pow2_at_least(2 * w)
+    n_pad = -(-n // block_rows) * block_rows
+    # the last program reads padded rows up to n_pad - 1 + cw
+    rows = _padded_rows(
+        spos.astype(jnp.float32), smask, w, n_pad - n + cw, axis_name
+    )
+    cap_active = max_nn is not None and (max_nn - 1) < 2 * w
     kernel = functools.partial(
-        _stats_kernel, tile=tile, w=w, r_k=k - 1,
+        _stats_kernel, block_rows=block_rows, cw=cw, w=w, r_k=k - 1,
         r_cap=(max_nn - 1) if cap_active else 0,
         r2=float(radius) * float(radius),
-        store_offsets=store_offsets, rank_mode=rank_mode, sym=sym,
     )
-    scratch = [
-        pltpu.VMEM((_ROWS, tile + 2 * w + _lane_pad(tile, w)),
-                   jnp.float32),
-        pltpu.VMEM((w2, tile), jnp.int32),
-        pltpu.SemaphoreType.DMA(()),
-    ]
-    if store_offsets:
-        scratch += [pltpu.VMEM((w2, tile), jnp.float32)] * 3
     out = pl.pallas_call(
         kernel,
-        grid=(n_pad // tile,),
-        in_specs=[pl.BlockSpec(memory_space=pl.ANY)],
-        # one [16, n_pad] output (11 rows used): separate [n_pad]
-        # outputs made XLA stage them whole in scoped VMEM at big tiles
-        out_specs=pl.BlockSpec((16, tile), lambda ti: (0, ti),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((16, n_pad), jnp.float32),
-        scratch_shapes=scratch,
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary",),
-            # Mosaic's unrolled offset loops keep ~4.7 B/tile-row of
-            # temporaries live; the default 16 MB scoped cap only
-            # allows tile 2048 (528 grid steps × ~35 µs overhead =
-            # ~18 ms).  v5e VMEM is 128 MB — raise the cap, run tile
-            # 8192 (132 steps).
-            vmem_limit_bytes=64 * 1024 * 1024,
-        ),
+        grid=(n_pad // block_rows,),
+        in_specs=[pl.BlockSpec(memory_space=pl.ANY)] * 4,
+        out_specs=[pl.BlockSpec((block_rows,), lambda i: (i,))] * _N_OUT,
+        out_shape=[jax.ShapeDtypeStruct((n_pad,), jnp.float32)] * _N_OUT,
+        backend="triton",
+        compiler_params=pltriton.CompilerParams(num_warps=num_warps),
         interpret=interpret,
-    )(slab)
-    if n_pad != n:
-        out = lax.slice(out, (0, 0), (16, n))
-    dk, s0 = out[0], out[1]
-    s1 = jnp.transpose(out[2:5])
-    s2 = jnp.transpose(out[5:11])
-    return dk, s0, s1, s2
+        name="stats_sweep",
+    )(*rows)
+    out = [o[:n] for o in out]
+    return out[0], out[1], jnp.stack(out[2:5], 1), jnp.stack(out[5:11], 1)
 
 
 @functools.partial(
     jax.jit,
     static_argnames=("k", "window", "radius", "max_nn", "orient_z",
-                     "axis_name", "use_kernel", "rank_mode",
-                     "store_offsets", "sym"),
+                     "axis_name", "impl", "interpret"),
 )
 def knn_normals_window_stats(
     spos: jax.Array,
@@ -405,73 +229,26 @@ def knn_normals_window_stats(
     orient_z: bool = True,
     axis_name: str = None,
     max_nn: int = None,
-    use_kernel: bool = None,
-    rank_mode: str = None,
-    store_offsets: bool = False,
-    sym: bool = None,
+    impl: str = None,
+    interpret: bool = False,
 ):
-    """Stats-only fused sweep → (kth_sq_dist, normals, curvature).
+    """Stats-only sweep → (kth_sq_dist, normals, curvature).
 
-    Production replacement for :func:`ops.fused.knn_normals_window_sorted`
-    when the sorted neighbor lists are not consumed:
-    ``kth_sq_dist[i]`` equals that op's ``neigh_sq_dist[i, k-1]`` and
-    normals/curvature match its outputs (same moment accumulation).
-    Default: the Pallas kernel on TPU, the XLA fused op (stats derived
-    from its outputs — the same contract) on CPU.
+    ``kth_sq_dist[i]`` equals :func:`ops.fused.knn_normals_window_sorted`'s
+    ``neigh_sq_dist[i, k-1]`` and normals/curvature match its outputs.
+    ``impl`` is ``"triton"`` (the GPU kernel) or ``"xla"`` (the fused
+    XLA op); None asks :func:`stats_impl`.
     """
-    n = spos.shape[0]
-    if use_kernel is None:
-        from buildingsegment_tpu.utils.platform import use_device_kernels
-
-        use_kernel = use_device_kernels()
-    if not use_kernel:
-        from buildingsegment_tpu.ops.fused import knn_normals_window_sorted
-
+    if stats_impl(impl) == "xla":
         _, nb_d, normals, curv = knn_normals_window_sorted(
             spos, smask, k, window=window, radius=radius,
             orient_z=orient_z, axis_name=axis_name, max_nn=max_nn,
         )
         return nb_d[:, k - 1], normals, curv
-
-    from buildingsegment_tpu.ops.window_sweep import make_slab, pick_tile
-
-    # big tiles amortize the ~35 us/grid-step overhead; the bisection
-    # runs over 2048-wide column chunks internally (see _stats_kernel)
-    tile = pick_tile(n, 8192)
-    posf = spos.astype(jnp.float32)
-    slab = make_slab(
-        [posf[:, 0], posf[:, 1], posf[:, 2],
-         smask.astype(jnp.float32)],
-        [-3e7, -3e7, -3e7, 0.0],
-        window, tile, axis_name=axis_name, rows_out=8,
+    dk, s0, s1, s2 = stats_sweep_triton(
+        spos, smask, k=k, window=window, radius=radius, max_nn=max_nn,
+        axis_name=axis_name, interpret=interpret,
     )
-    import os
-
-    if rank_mode is None:
-        rank_mode = os.environ.get("BST_RANK_MODE", "bitonic")
-    if sym is None:
-        # symmetry-halved phase 1 — bit-identical to the plain sweep
-        # (tests pin equality) and chip-measured faster (w48: 9.4 ms vs
-        # 10.8 at 1.08M, perf_winner 2026-08-19), so it is the default;
-        # BST_STATS_SYM=0 is the kill switch
-        sym = os.environ.get("BST_STATS_SYM", "1") == "1"
-    if rank_mode == "mxu":
-        # block-form variant: distances + moments as MXU matmuls
-        # (ops/stats_mxu.py; near-exact — see its exactness note)
-        from buildingsegment_tpu.ops.stats_mxu import fused_stats_mxu
-
-        dk, s0, s1, s2 = fused_stats_mxu(
-            slab, n, k=k, w=window, tile=tile, radius=radius,
-            max_nn=max_nn, interpret=False,
-        )
-    else:
-        dk, s0, s1, s2 = fused_stats_sweep(
-            slab, n, k=k, w=window, tile=tile, radius=radius,
-            max_nn=max_nn, interpret=False, rank_mode=rank_mode,
-            store_offsets=store_offsets, sym=sym,
-        )
-    from buildingsegment_tpu.ops.fused import finish_normals
-
     normals, curvature = finish_normals(s0, s1, s2, orient_z=orient_z)
     # masked points: mirror the fused op (zero ball, +Z normal)
     dk = jnp.where(smask, dk, 0.0)

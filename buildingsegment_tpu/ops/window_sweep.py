@@ -1,821 +1,204 @@
-"""Pallas mega-kernels for the windowized ±W sweeps.
+"""The ±W window sweeps of region growing, in plain XLA.
 
-The XLA formulation of a window sweep re-reads every operand array from
-HBM once per offset (the compiler cannot pin a row tile in VMEM across
-offsets), so a 2W-offset sweep over C operand arrays moves ~2W·C·4
-bytes per point — ~1.4 KB/point for the refinement sweep.  These
-kernels DMA one packed [16, T+2W] slab per row tile into VMEM and run
-the whole offset loop on it: HBM traffic drops to 64 B/point
-(read-once) and the arithmetic runs at VPU speed on VMEM operands.
+Every sweep reads the same pattern: for each offset o ∈ [−W, W] \\ {0}
+of a Morton-sorted cloud, row i meets row i+o.  The rows are padded by
+W sentinel rows on both sides (or, under ``shard_map``, by W halo rows
+from the ring neighbours), so each offset is one static 1-D slice and
+the whole unrolled loop fuses into a few elementwise kernels.  Arrays
+are kept as 1-D components: slicing an ``[n, 3]`` array pads its
+3-wide minor axis in some layouts.
 
-All kernels take PRE-PADDED component rows (constant sentinels on a
-single device, ppermute halo rows under shard_map — the caller decides)
-packed into one float32 slab:
+Sweeps here:
 
-    rows 0-2: px py pz      (positions)
-    rows 3-5: nx ny nz      (unit normals)
-    rows 6-11: per-variant model rows
-    row 12:   per-variant integer channel as float (plane id / label —
-              exact below 2^24)
-    row 13:   mask (1.0 / 0.0)
-    row 14:   per-variant extra (e.g. the seed-ball radius)
-    row 15:   zero padding (DMA slices need 8-row alignment on dim 0)
+* :func:`label_sweep` — one label-propagation step of the windowized
+  solver (``seg/region_grow.py``): the hop-min (a neighbour's region
+  model accepts this point) and the merge hook (the two regions'
+  models accept each other, smaller label wins).
+* :func:`refine_clean` and :func:`refine_sweep` — the multigrid
+  refinement (``seg/coarse.py``): drop points whose plane rejects them,
+  then adopt the smallest accepting plane id of nearby rows.
 
-Everything is exact float32 — results are bit-identical to the XLA
-sweeps (same operations, same order per offset; accumulation is a
-pure min/or chain, which is order-insensitive for these reductions).
+The depth-0 seed sweep is ``seg.region_grow.window_seeds``.
 """
 
 from __future__ import annotations
 
-import functools
-import os
-
-import jax
 import jax.numpy as jnp
 from jax import lax
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 __all__ = [
-    "refine_table_sweep", "build_plane_table", "seed_sweep",
-    "label_sweep", "pick_tile",
+    "pad_rows", "pad_positions", "window_starts",
+    "label_sweep", "refine_clean", "refine_sweep",
 ]
 
-_ROWS = 16
+FAR = -3e7  # sentinel coordinate of padding rows
 
 
-def pick_tile(n: int, target: int = 8192) -> int:
-    """Row-tile size for an n-point sweep: ``target`` capped to the
-    next power of two ≥ n.  Wrappers pad n up to a tile multiple
-    internally, so divisibility is not required (tests with tiny n
-    still exercise multi-tile grids by passing a smaller target)."""
-    t = 128
-    while t < min(n, target):
-        t *= 2
-    return t
+def pad_rows(a, fill, w, axis_name=None):
+    """``a`` with ``w`` rows of ``fill`` on both sides — or, inside
+    ``shard_map`` over ``axis_name``, ``w`` halo rows from the ring
+    neighbours (zeros at the global edges, gated by the padded mask
+    exactly like the sentinel fill)."""
+    if axis_name is not None:
+        from buildingsegment_tpu.dist.halo import halo_pad
+
+        return halo_pad(a, w, axis_name)
+    f = jnp.full((w,) + a.shape[1:], fill, a.dtype)
+    return jnp.concatenate([f, a, f])
 
 
-def _lane_pad(tile, w):
-    """Extra zero columns so the per-tile DMA width (tile + 2w + pad)
-    is lane-aligned — Mosaic requires DMA slice shapes to be multiples
-    of the 128-lane tiling on the minor dimension."""
-    return (-(tile + 2 * w)) % 128
-
-
-def slab_width(n, w, tile):
-    """Total slab width for n rows: tile-padded + 2w halo + lane pad."""
-    n_pad = -(-n // tile) * tile
-    return n_pad + 2 * w + _lane_pad(tile, w)
-
-
-def make_slab(rows, fills, w, tile, axis_name=None, rows_out=_ROWS):
-    """Stack k UNPADDED [n] component rows into the [16, width] slab.
-
-    One stack + one concatenate + one pad — the old per-row
-    pad-then-dynamic_update_slice chain issued ~2 XLA kernels per row
-    and cost ~6 ms at 1M rows (vs ~3 ms for the whole slab this way).
-
-    ``fills`` gives each row's halo fill value (single device).  Under
-    ``shard_map`` (``axis_name``) the ±w halo columns come from ONE
-    ppermute pair over the stacked matrix instead of one per row;
-    global-edge shards get zeros, gated by the exchanged mask row
-    exactly like the sentinel fills are.
-    """
-    k = len(rows)
-    n = rows[0].shape[0]
-    width = slab_width(n, w, tile)
-    m = jnp.stack([r.astype(jnp.float32) for r in rows], 0)  # [k, n]
-    lane = width - n - 2 * w
-    if axis_name is None:
-        fl = jnp.asarray(fills, jnp.float32)[:, None]
-        left = jnp.broadcast_to(fl, (k, w))
-        right = jnp.broadcast_to(fl, (k, w + lane))
-        slab = jnp.concatenate([left, m, right], axis=1)
-    else:
-        from buildingsegment_tpu.dist.halo import ring_halo
-
-        # multi-hop when w exceeds the local column count (tiny coarse
-        # levels) — each side is exactly w columns either way
-        left, right = ring_halo(m, w, axis_name, axis=1)
-        zpad = jnp.zeros((k, lane), jnp.float32)
-        slab = jnp.concatenate([left, m, right, zpad], axis=1)
-    if k < rows_out:
-        slab = lax.pad(
-            slab, jnp.float32(0), ((0, rows_out - k, 0), (0, 0, 0))
-        )
-    return slab
-
-
-def make_spine(pos_xyz, nrm_xyz, maskf, w, tile, axis_name=None):
-    """The STATIC 8-row slab shared by every sweep of one solve:
-    rows 0-2 position, 3-5 normal, 6 mask, 7 zero.
-
-    Seeds and refinement rebuild only their per-sweep row (the seed
-    ball / the plane id) as a 4-row dynamic slab — at 1M points the
-    full 8-row rebuild per sweep was ~2 ms of pure XLA copy each."""
-    px, py, pz = pos_xyz
-    nx, ny, nz = nrm_xyz
-    return make_slab(
-        [px, py, pz, nx, ny, nz, maskf],
-        [-3e7, -3e7, -3e7, 0.0, 0.0, 0.0, 0.0],
-        w, tile, axis_name=axis_name, rows_out=8,
+def pad_positions(pos, mask, w, axis_name=None):
+    """Padded (x, y, z, mask) rows of a solve, built once and shared by
+    all of its sweeps."""
+    px, py, pz = pos
+    return (
+        pad_rows(px, FAR, w, axis_name),
+        pad_rows(py, FAR, w, axis_name),
+        pad_rows(pz, FAR, w, axis_name),
+        pad_rows(mask, False, w, axis_name),
     )
 
 
-def make_dyn_row(row, fill, w, tile, axis_name=None):
-    """A single per-sweep row as a 4-row slab (sublane-aligned DMA)."""
-    return make_slab([row], [fill], w, tile, axis_name=axis_name,
-                     rows_out=4)
+def window_starts(w):
+    """Slice starts of the 2w offsets −w..−1, 1..w in a w-padded row."""
+    return [slot if slot < w else slot + 1 for slot in range(2 * w)]
 
 
-def _sweep_call(kernel, slab, n, w, tile, interpret, n_out=1):
-    """Run ``kernel`` over row tiles of a pre-built slab.
-
-    n is padded up to a tile multiple so every tile's DMA window and
-    the 1-D output block stay aligned for any caller n; the pad tail
-    is masked out (zero mask rows) and sliced off the result.  The
-    output block (a power-of-two ≥ 1024 for production sizes) is a
-    multiple of any 1-D tiling XLA assigns to the [n_pad] result.
-    """
-    n_pad = -(-n // tile) * tile
-    grid = (n_pad // tile,)
-    out_shape = tuple(
-        jax.ShapeDtypeStruct((n_pad,), jnp.float32) for _ in range(n_out)
-    )
-    out_specs = tuple(
-        pl.BlockSpec((tile,), lambda ti: (ti,), memory_space=pltpu.VMEM)
-        for _ in range(n_out)
-    )
-    if n_out == 1:
-        out_shape = out_shape[0]
-        out_specs = out_specs[0]
-    out = pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[pl.BlockSpec(memory_space=pl.ANY)],
-        out_specs=out_specs,
-        out_shape=out_shape,
-        scratch_shapes=[
-            pltpu.VMEM((slab.shape[0], tile + 2 * w + _lane_pad(tile, w)),
-                       jnp.float32),
-            pltpu.SemaphoreType.DMA(()),
-        ],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary",),
-            # allow big tiles (fewer ~35 us grid steps); v5e VMEM is
-            # 128 MB, the default scoped cap is a conservative 16 MB
-            vmem_limit_bytes=64 * 1024 * 1024,
-        ),
-        interpret=interpret,
-    )(slab)
-    if n_pad == n:
-        return out
-    if n_out == 1:
-        return lax.slice(out, (0,), (n,))
-    return tuple(lax.slice(o, (0,), (n,)) for o in out)
+def _cmag(signed):
+    return (lambda x: x) if signed else jnp.abs
 
 
-def _interpret_default() -> bool:
-    return jax.devices()[0].platform == "cpu"
-
-
-# ----------------------------------------------------------------------
-# table-based refinement sweep (seg/coarse.py): adopt the min accepting
-# plane id of nearby rows.  The plane models live in a SMALL table
-# ([max_planes] normals + plane offsets b = n·c); per-candidate model
-# rows are produced IN-KERNEL by a one-hot matmul over the live plane
-# chunks — an XLA table gather at [N] scale runs ~2 GB/s and cost
-# ~13 ms/sweep at 1M points, the in-kernel matmul is ~0.5 ms.
-#
-# The plane-band test uses the offset form |p·n_t − b_t| ≤ th (b_t
-# precomputed as n_t·c_t): algebraically identical to |(p−c_t)·n_t|,
-# different f32 rounding (~1e-3 mm at mm scale — far below th).  The
-# XLA fallback in seg/coarse.py uses the same form, so kernel↔XLA stay
-# bit-identical.
-#
-# ``clean=True`` additionally fuses the reference pass that drops
-# points whose own plane no longer accepts them (seg/coarse.py used to
-# run it as a separate gather pass): a candidate counts only if its OWN
-# plane accepts it, and the center keeps its id only under the same
-# test.  slab rows: 0-2 pos, 3-5 normal, 6 plane id (0 = none), 7 mask.
-# ----------------------------------------------------------------------
-
-_RROWS = 8  # refine slab rows
-_PCHUNK = 128
-
-
-def build_plane_table(plane_normal, plane_center):
-    """Pack plane models into the refine kernel's [C, 8, 128] table.
-
-    Component rows: 0-2 = unit normal, 3 = b = n·c, 4-7 zero.  Row p-1
-    holds plane id p.
-    """
-    p = plane_normal.shape[0]
-    cap = -(-p // _PCHUNK) * _PCHUNK
-    b = jnp.sum(
-        plane_normal.astype(jnp.float32) * plane_center.astype(jnp.float32),
-        axis=-1,
-    )
-    comp = jnp.zeros((8, cap), jnp.float32)
-    comp = comp.at[0, :p].set(plane_normal[:, 0])
-    comp = comp.at[1, :p].set(plane_normal[:, 1])
-    comp = comp.at[2, :p].set(plane_normal[:, 2])
-    comp = comp.at[3, :p].set(b)
-    return jnp.transpose(
-        comp.reshape(8, cap // _PCHUNK, _PCHUNK), (1, 0, 2)
-    )
-
-
-def _refine_table_kernel(nchunk_ref, slab_hbm, table_ref, out_ref, slab,
-                         sem, *, tile, w, th_thickness, th_normal_cos,
-                         edge_gate2, big_pid, signed, clean, adopt,
-                         dyn_hbm=None, dyn=None, sem2=None):
-    ti = pl.program_id(0)
-    width = tile + 2 * w + _lane_pad(tile, w)
-    dma = pltpu.make_async_copy(
-        slab_hbm.at[:, pl.ds(ti * tile, width)], slab, sem,
-    )
-    dma.start()
-    if dyn is not None:
-        dma2 = pltpu.make_async_copy(
-            dyn_hbm.at[:, pl.ds(ti * tile, width)], dyn, sem2,
-        )
-        dma2.start()
-    dma.wait()
-    if dyn is not None:
-        dma2.wait()
-
-    # pair layout: spine row 6 = mask, dyn row 0 = plane id;
-    # single-slab layout: row 6 = plane id, row 7 = mask
-    pidrow = dyn[0, :] if dyn is not None else slab[6, :]
-
-    def chunk(c, macc):
-        base = (c * _PCHUNK).astype(jnp.float32) + 1.0  # id p ↔ row p-1
-        # Mosaic iota must be integer-typed; convert after
-        tgt = base + lax.broadcasted_iota(
-            jnp.int32, (_PCHUNK, width), 0
-        ).astype(jnp.float32)
-        eqT = jnp.where(tgt == pidrow[None, :], 1.0, 0.0)
-        tc = table_ref[c]  # [8, 128]
-        return macc + lax.dot_general(
-            tc, eqT, (((1,), (0,)), ((), ())),
-            precision=lax.Precision.HIGHEST,
-            preferred_element_type=jnp.float32,
-        )
-
-    macc = lax.fori_loop(
-        0, nchunk_ref[0], chunk, jnp.zeros((_RROWS, width), jnp.float32)
-    )
-
-    def srow(i, s):
-        return slab[i, pl.ds(s, tile)]
-
-    def cmag(x):
-        return x if signed else jnp.abs(x)
-
-    # self test over the FULL padded range (candidates need it too when
-    # cleaning): does the row's own plane still accept it?
-    prx, pry, prz = slab[0, :], slab[1, :], slab[2, :]
-    nrx, nry, nrz = slab[3, :], slab[4, :], slab[5, :]
-    mrow = slab[6, :] if dyn is not None else slab[7, :]
-    mnx_f, mny_f, mnz_f, mb_f = macc[0], macc[1], macc[2], macc[3]
-    d_self = jnp.abs(prx * mnx_f + pry * mny_f + prz * mnz_f - mb_f)
-    c_self = cmag(nrx * mnx_f + nry * mny_f + nrz * mnz_f)
-    has_f = (pidrow > 0.5) & (mrow > 0.5)
-    self_ok_f = (
-        has_f & (d_self <= th_thickness) & (c_self >= th_normal_cos)
-    )
-    eff_pid_f = jnp.where(
-        self_ok_f if clean else has_f, pidrow, 0.0
-    )
-
-    def vrow(v, s):
-        # static-start slice of an in-register value (Mosaic has no
-        # dynamic_slice lowering for values; starts here are Python ints)
-        return lax.slice(v, (s,), (s + tile,))
-
-    px, py, pz = srow(0, w), srow(1, w), srow(2, w)
-    nx, ny, nz = srow(3, w), srow(4, w), srow(5, w)
-    mask0 = srow(6, w) if dyn is not None else srow(7, w)
-    keep0 = vrow(eff_pid_f, w)
-
-    best = jnp.full((tile,), big_pid, jnp.float32)
-    if adopt:
-        for slot in range(2 * w):
-            start = slot if slot < w else slot + 1
-            dx = px - vrow(prx, start)
-            dy = py - vrow(pry, start)
-            dz = pz - vrow(prz, start)
-            near = dx * dx + dy * dy + dz * dz <= edge_gate2
-            cmnx = vrow(mnx_f, start)
-            cmny = vrow(mny_f, start)
-            cmnz = vrow(mnz_f, start)
-            d = jnp.abs(
-                px * cmnx + py * cmny + pz * cmnz - vrow(mb_f, start)
-            )
-            c = cmag(nx * cmnx + ny * cmny + nz * cmnz)
-            cpid = vrow(eff_pid_f, start)
-            ok = (
-                (cpid > 0.5)
-                & near
-                & (mask0 > 0.5)
-                & (d <= th_thickness)
-                & (c >= th_normal_cos)
-            )
-            best = jnp.minimum(best, jnp.where(ok, cpid, big_pid))
-    out_ref[...] = jnp.where(
-        keep0 > 0.5, keep0, jnp.where(best < big_pid, best, 0.0)
-    )
-
-
-def _refine_table_kernel_pair(nchunk_ref, spine_hbm, dyn_hbm, table_ref,
-                              out_ref, slab, dyn, sem, sem2, **cfg):
-    _refine_table_kernel(
-        nchunk_ref, spine_hbm, table_ref, out_ref, slab, sem,
-        dyn_hbm=dyn_hbm, dyn=dyn, sem2=sem2, **cfg,
-    )
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=(
-        "n", "w", "tile", "th_thickness", "th_normal_cos", "edge_gate2",
-        "big_pid", "signed", "clean", "adopt", "interpret",
-    ),
-)
-def refine_table_sweep_pair(
-    spine, dyn, n, table, n_live, *, w,
-    tile, th_thickness, th_normal_cos, edge_gate2, big_pid,
-    signed=False, clean=False, adopt=True, interpret=None,
-):
-    """Refinement sweep over a shared spine + per-sweep plane-id row.
-
-    Same contract as :func:`refine_table_sweep`; spine from
-    :func:`make_spine` (rows 0-2 position, 3-5 normal, 6 mask), dyn
-    from :func:`make_dyn_row` (row 0 = plane id, 0 = none)."""
-    n_pad = -(-n // tile) * tile
-    width = tile + 2 * w + _lane_pad(tile, w)
-    n_chunk_cap = table.shape[0]
-    n_chunks = jnp.minimum(
-        (n_live.astype(jnp.int32) + _PCHUNK - 1) // _PCHUNK, n_chunk_cap
-    ).reshape((1,))
-    kernel = functools.partial(
-        _refine_table_kernel_pair, tile=tile, w=w,
-        th_thickness=th_thickness, th_normal_cos=th_normal_cos,
-        edge_gate2=edge_gate2, big_pid=big_pid, signed=signed,
-        clean=clean, adopt=adopt,
-    )
-    if interpret is None:
-        interpret = _interpret_default()
-    out = pl.pallas_call(
-        kernel,
-        grid=(n_pad // tile,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pl.ANY),
-            pl.BlockSpec(memory_space=pl.ANY),
-            pl.BlockSpec((n_chunk_cap, 8, _PCHUNK), lambda ti: (0, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((tile,), lambda ti: (ti,),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((n_pad,), jnp.float32),
-        scratch_shapes=[
-            pltpu.VMEM((8, width), jnp.float32),
-            pltpu.VMEM((4, width), jnp.float32),
-            pltpu.SemaphoreType.DMA(()),
-            pltpu.SemaphoreType.DMA(()),
-        ],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary",),
-            vmem_limit_bytes=64 * 1024 * 1024,
-        ),
-        interpret=interpret,
-    )(n_chunks, spine, dyn, table)
-    if n_pad != n:
-        out = lax.slice(out, (0,), (n,))
-    return out
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=(
-        "n", "w", "tile", "th_thickness", "th_normal_cos", "edge_gate2",
-        "big_pid", "signed", "clean", "adopt", "interpret",
-    ),
-)
-def refine_table_sweep(
-    slab, n, table, n_live, *, w,
-    tile, th_thickness, th_normal_cos, edge_gate2, big_pid,
-    signed=False, clean=False, adopt=True, interpret=None,
-):
-    """One table-based refinement sweep over a pre-built slab.
+def label_sweep(pos, nrm, mask, label, model, padded, *, window,
+                th_thickness, th_normal_cos, edge_gate2, inf_label,
+                signed=False, axis_name=None):
+    """One windowized label-propagation sweep.
 
     Args:
-        slab: f32[8, width] from :func:`make_slab` — rows 0-2 position,
-            3-5 normal, 6 plane id (0 = none, fill 0), 7 mask.
-        n: number of real rows.
-        table: f32[C, 8, 128] from :func:`build_plane_table`.
-        n_live: scalar int32 number of live planes (may be traced);
-            only ceil(n_live/128) table chunks are matched.
-        clean: fuse the self-accept cleaning pass (drop rows whose own
-            plane rejects them) into this sweep.
-        adopt: run the ±w adoption loop (False = cleaning only).
+        pos, nrm: (x, y, z) component rows, f32[n] each.
+        mask: bool[n].
+        label: int32[n] current label (``inf_label`` = none).
+        model: f32[n, 6] unit normal and center of each row's label
+            model (zeros where the row has no label).
+        padded: :func:`pad_positions` of ``pos``/``mask``.
+        edge_gate2: squared Euclidean edge gate.
 
-    Returns f32[n] new plane id (0 where none).
+    Returns (new, best): ``new`` = min(label, smallest neighbour label
+    whose model accepts the row); ``best`` = smallest smaller neighbour
+    label whose model and this row's model accept each other
+    (``inf_label`` where none).
     """
-    n_pad = -(-n // tile) * tile
-    n_chunk_cap = table.shape[0]
-    n_chunks = jnp.minimum(
-        (n_live.astype(jnp.int32) + _PCHUNK - 1) // _PCHUNK, n_chunk_cap
-    ).reshape((1,))
-    kernel = functools.partial(
-        _refine_table_kernel, tile=tile, w=w, th_thickness=th_thickness,
-        th_normal_cos=th_normal_cos, edge_gate2=edge_gate2,
-        big_pid=big_pid, signed=signed, clean=clean, adopt=adopt,
-    )
-    if interpret is None:
-        interpret = _interpret_default()
-    out = pl.pallas_call(
-        kernel,
-        grid=(n_pad // tile,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pl.ANY),
-            pl.BlockSpec((n_chunk_cap, 8, _PCHUNK), lambda ti: (0, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((tile,), lambda ti: (ti,),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((n_pad,), jnp.float32),
-        scratch_shapes=[
-            pltpu.VMEM((_RROWS, tile + 2 * w + _lane_pad(tile, w)),
-                       jnp.float32),
-            pltpu.SemaphoreType.DMA(()),
-        ],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary",),
-            vmem_limit_bytes=64 * 1024 * 1024,
-        ),
-        interpret=interpret,
-    )(n_chunks, slab, table)
-    if n_pad != n:
-        out = lax.slice(out, (0,), (n,))
-    return out
+    n = label.shape[0]
+    ws = window
+    cmag = _cmag(signed)
+    px, py, pz = pos
+    nx_, ny_, nz_ = nrm
+    ppx, ppy, ppz, pmask = padded
+    mnx, mny, mnz = model[:, 0], model[:, 1], model[:, 2]
+    mcx, mcy, mcz = model[:, 3], model[:, 4], model[:, 5]
+    has = label < inf_label
 
+    def pad(a, fill):
+        return pad_rows(a, fill, ws, axis_name)
 
-# ----------------------------------------------------------------------
-# seed sweep (seg/region_grow.py window_seeds): a point is bad iff any
-# window candidate within its seed ball fails the plane test —
-# 8-row slab: 0-2 position, 3-5 normal, 6 = squared k-th-NN ball,
-# 7 = mask
-# ----------------------------------------------------------------------
-
-
-def _seed_kernel_pair(spine_hbm, dyn_hbm, out_ref, spine, dyn, sem, sem2,
-                      *, tile, w, th_thickness, th_normal_cos, signed):
-    ti = pl.program_id(0)
-    width = tile + 2 * w + _lane_pad(tile, w)
-    dma = pltpu.make_async_copy(
-        spine_hbm.at[:, pl.ds(ti * tile, width)], spine, sem,
-    )
-    dma2 = pltpu.make_async_copy(
-        dyn_hbm.at[:, pl.ds(ti * tile, width)], dyn, sem2,
-    )
-    dma.start()
-    dma2.start()
-    dma.wait()
-    dma2.wait()
-
-    def row(i, s):
-        return spine[i, pl.ds(s, tile)]
-
-    px, py, pz = row(0, w), row(1, w), row(2, w)
-    nx, ny, nz = row(3, w), row(4, w), row(5, w)
-    dk = dyn[0, pl.ds(w, tile)]
-    mask0 = row(6, w)
-    bad = jnp.zeros((tile,), jnp.float32)
-    for slot in range(2 * w):
-        start = slot if slot < w else slot + 1
-        dx = row(0, start) - px
-        dy = row(1, start) - py
-        dz = row(2, start) - pz
-        d2 = dx * dx + dy * dy + dz * dz
-        in_ball = (d2 <= dk) & (row(6, start) > 0.5) & (mask0 > 0.5)
-        pd = jnp.abs(dx * nx + dy * ny + dz * nz)
-        pc = (
-            row(3, start) * nx + row(4, start) * ny + row(5, start) * nz
-        )
-        if not signed:
-            pc = jnp.abs(pc)
-        fails = in_ball & ~(
-            (pd <= th_thickness) & (pc >= th_normal_cos)
-        )
-        bad = jnp.maximum(bad, jnp.where(fails, 1.0, 0.0))
-    out_ref[...] = bad
-
-
-def _seed_kernel_sym(spine_hbm, dyn_hbm, out_ref, spine, dyn, sem, sem2,
-                     *, tile, w, th_thickness, th_normal_cos, signed):
-    """Symmetry-halved seed sweep: each unordered pair {i, i+d} is
-    tested ONCE per shift d = 1..w, updating BOTH endpoints.
-
-    The misaligned shifted reads dominate the seed sweep's runtime
-    (the tests themselves are ~16 vector ops on data the reads already
-    paid for), and the pair quantities are shared: d² and the normal
-    cos are symmetric, only the plane-band projection and the ball
-    radius differ per direction.  Halving the shift count halves those
-    reads at the cost of one extra misaligned read (the candidate's
-    ball) and one misaligned accumulator RMW per shift.
-
-    Halo correctness: query lanes span [0, tile+w) — a pair whose
-    lower index sits in the LEFT halo still updates its upper (core)
-    endpoint via the B direction, and B-updates landing in the RIGHT
-    halo are discarded (the next tile recomputes that pair with the
-    lower index in its own left halo).  Fill rows (sentinel position,
-    zero mask/ball) fail every gate, exactly like the 2w-shift kernel.
-    """
-    ti = pl.program_id(0)
-    width = tile + 2 * w + _lane_pad(tile, w)
-    dma = pltpu.make_async_copy(
-        spine_hbm.at[:, pl.ds(ti * tile, width)], spine, sem,
-    )
-    dma2 = pltpu.make_async_copy(
-        dyn_hbm.at[:, pl.ds(ti * tile, width)], dyn, sem2,
-    )
-    dma.start()
-    dma2.start()
-    dma.wait()
-    dma2.wait()
-
-    L = tile + w  # fixed pair-slice length (queries [0, L))
-
-    def qrow(i):
-        return spine[i, pl.ds(0, L)]
-
-    def crow(i, d):
-        return spine[i, pl.ds(d, L)]
-
-    qx, qy, qz = qrow(0), qrow(1), qrow(2)
-    qnx, qny, qnz = qrow(3), qrow(4), qrow(5)
-    qm = qrow(6)
-    qdk = dyn[0, pl.ds(0, L)]
-    # rows 1-3 of the dyn slab are zero padding — row 1 doubles as the
-    # full-width bad accumulator (both directions RMW into it)
-    dyn[1, :] = jnp.zeros((width,), jnp.float32)
-    for d in range(1, w + 1):
-        cx, cy, cz = crow(0, d), crow(1, d), crow(2, d)
-        dx = cx - qx
-        dy = cy - qy
-        dz = cz - qz
-        d2 = dx * dx + dy * dy + dz * dz
-        cm = crow(6, d)
-        both = (cm > 0.5) & (qm > 0.5)
-        cnx, cny, cnz = crow(3, d), crow(4, d), crow(5, d)
-        pc = cnx * qnx + cny * qny + cnz * qnz
-        if not signed:
-            pc = jnp.abs(pc)
-        cos_ok = pc >= th_normal_cos
-        # A: query i, candidate i+d (projection on the QUERY normal)
-        pd_a = jnp.abs(dx * qnx + dy * qny + dz * qnz)
-        fails_a = (
-            (d2 <= qdk) & both & ~((pd_a <= th_thickness) & cos_ok)
-        )
-        # B: query i+d, candidate i (projection on the CANDIDATE normal)
-        cdk = dyn[0, pl.ds(d, L)]
-        pd_b = jnp.abs(dx * cnx + dy * cny + dz * cnz)
-        fails_b = (
-            (d2 <= cdk) & both & ~((pd_b <= th_thickness) & cos_ok)
-        )
-        dyn[1, pl.ds(0, L)] = jnp.maximum(
-            dyn[1, pl.ds(0, L)], jnp.where(fails_a, 1.0, 0.0)
-        )
-        dyn[1, pl.ds(d, L)] = jnp.maximum(
-            dyn[1, pl.ds(d, L)], jnp.where(fails_b, 1.0, 0.0)
-        )
-    out_ref[...] = dyn[1, pl.ds(w, tile)]
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=(
-        "n", "w", "tile", "th_thickness", "th_normal_cos", "signed",
-        "interpret", "sym",
-    ),
-)
-def seed_sweep_pair(
-    spine, dyn, n, *, w, tile, th_thickness, th_normal_cos,
-    signed=False, interpret=None, sym=None,
-):
-    """Seed sweep over a shared spine + per-solve dk row.
-
-    Same contract as :func:`seed_sweep`; spine from :func:`make_spine`
-    (rows 0-2 position, 3-5 normal, 6 mask), dyn from
-    :func:`make_dyn_row` (row 0 = squared k-th-NN ball).
-
-    ``sym`` selects the symmetry-halved kernel (w pair shifts instead
-    of 2w one-directional shifts — bit-identical output); default is
-    the BST_SEED_SYM env switch, off until hardware-measured."""
-    if interpret is None:
-        interpret = _interpret_default()
-    if sym is None:
-        sym = os.environ.get("BST_SEED_SYM", "0") == "1"
-    n_pad = -(-n // tile) * tile
-    width = tile + 2 * w + _lane_pad(tile, w)
-    kernel = functools.partial(
-        _seed_kernel_sym if sym else _seed_kernel_pair,
-        tile=tile, w=w, th_thickness=th_thickness,
-        th_normal_cos=th_normal_cos, signed=signed,
-    )
-    out = pl.pallas_call(
-        kernel,
-        grid=(n_pad // tile,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pl.ANY),
-            pl.BlockSpec(memory_space=pl.ANY),
-        ],
-        out_specs=pl.BlockSpec((tile,), lambda ti: (ti,),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((n_pad,), jnp.float32),
-        scratch_shapes=[
-            pltpu.VMEM((8, width), jnp.float32),
-            pltpu.VMEM((4, width), jnp.float32),
-            pltpu.SemaphoreType.DMA(()),
-            pltpu.SemaphoreType.DMA(()),
-        ],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary",),
-            vmem_limit_bytes=64 * 1024 * 1024,
-        ),
-        interpret=interpret,
-    )(spine, dyn)
-    if n_pad != n:
-        out = lax.slice(out, (0,), (n,))
-    return out
-
-
-def _seed_kernel(slab_hbm, out_ref, slab, sem, *, tile, w,
-                 th_thickness, th_normal_cos, signed):
-    ti = pl.program_id(0)
-    dma = pltpu.make_async_copy(
-        slab_hbm.at[:, pl.ds(ti * tile, tile + 2 * w + _lane_pad(tile, w))],
-        slab, sem,
-    )
-    dma.start()
-    dma.wait()
-
-    def row(i, s):
-        return slab[i, pl.ds(s, tile)]
-
-    px, py, pz = row(0, w), row(1, w), row(2, w)
-    nx, ny, nz = row(3, w), row(4, w), row(5, w)
-    dk = row(6, w)
-    mask0 = row(7, w)
-    bad = jnp.zeros((tile,), jnp.float32)
-    for slot in range(2 * w):
-        start = slot if slot < w else slot + 1
-        dx = row(0, start) - px
-        dy = row(1, start) - py
-        dz = row(2, start) - pz
-        d2 = dx * dx + dy * dy + dz * dz
-        in_ball = (d2 <= dk) & (row(7, start) > 0.5) & (mask0 > 0.5)
-        pd = jnp.abs(dx * nx + dy * ny + dz * nz)
-        pc = (
-            row(3, start) * nx + row(4, start) * ny + row(5, start) * nz
-        )
-        if not signed:
-            pc = jnp.abs(pc)
-        fails = in_ball & ~(
-            (pd <= th_thickness) & (pc >= th_normal_cos)
-        )
-        bad = jnp.maximum(bad, jnp.where(fails, 1.0, 0.0))
-    out_ref[...] = bad
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=(
-        "n", "w", "tile", "th_thickness", "th_normal_cos", "signed",
-        "interpret",
-    ),
-)
-def seed_sweep(
-    slab, n, *, w, tile,
-    th_thickness, th_normal_cos, signed=False, interpret=None,
-):
-    """Window seed-failure sweep over a pre-built slab.
-
-    Slab rows (:func:`make_slab`, rows_out=8): 0-2 position, 3-5
-    normal, 6 squared k-th-NN ball, 7 mask.  Returns f32[n]
-    (1.0 = bad, i.e. some in-ball candidate fails the plane test).
-    """
-    kernel = functools.partial(
-        _seed_kernel, tile=tile, w=w, th_thickness=th_thickness,
-        th_normal_cos=th_normal_cos, signed=signed,
-    )
-    if interpret is None:
-        interpret = _interpret_default()
-    return _sweep_call(kernel, slab, n, w, tile, interpret)
-
-
-# ----------------------------------------------------------------------
-# label-propagation sweep (seg/region_grow.py window_body step 3):
-# per offset, the hop-min (neighbor's region model accepts me) and the
-# merge hook (mutual model acceptance, smaller label) — slab rows
-# 6-8 model normal, 9-11 model center, 12 label (inf encoded as a
-# large float), rows as in the XLA version
-# ----------------------------------------------------------------------
-
-
-def _label_kernel(slab_hbm, new_ref, best_ref, slab, sem, *, tile, w,
-                  th_thickness, th_normal_cos, edge_gate2, inf_label,
-                  signed):
-    ti = pl.program_id(0)
-    dma = pltpu.make_async_copy(
-        slab_hbm.at[:, pl.ds(ti * tile, tile + 2 * w + _lane_pad(tile, w))],
-        slab, sem,
-    )
-    dma.start()
-    dma.wait()
-
-    def row(i, s):
-        return slab[i, pl.ds(s, tile)]
-
-    px, py, pz = row(0, w), row(1, w), row(2, w)
-    nx, ny, nz = row(3, w), row(4, w), row(5, w)
-    mnx, mny, mnz = row(6, w), row(7, w), row(8, w)
-    mcx, mcy, mcz = row(9, w), row(10, w), row(11, w)
-    lab0 = row(12, w)
-    mask0 = row(13, w)
-    has = lab0 < inf_label
-    new = lab0
-    best = jnp.full((tile,), inf_label, jnp.float32)
-    for slot in range(2 * w):
-        start = slot if slot < w else slot + 1
-        dx = px - row(0, start)
-        dy = py - row(1, start)
-        dz = pz - row(2, start)
-        near = (
-            (dx * dx + dy * dy + dz * dz <= edge_gate2)
-            & (row(13, start) > 0.5)
-            & (mask0 > 0.5)
-        )
-        clab = row(12, start)
-        cmnx, cmny, cmnz = row(6, start), row(7, start), row(8, start)
-        cmcx, cmcy, cmcz = row(9, start), row(10, start), row(11, start)
+    plab = pad(label, inf_label)
+    pmnx, pmny, pmnz = pad(mnx, 0.0), pad(mny, 0.0), pad(mnz, 0.0)
+    pmcx, pmcy, pmcz = pad(mcx, 0.0), pad(mcy, 0.0), pad(mcz, 0.0)
+    new = label
+    best = jnp.full((n,), inf_label, jnp.int32)
+    for start in window_starts(ws):
+        sl = lambda a: lax.slice(a, (start,), (start + n,))  # noqa: E731
+        clab = sl(plab)
+        dx = px - sl(ppx)
+        dy = py - sl(ppy)
+        dz = pz - sl(ppz)
+        near = (dx * dx + dy * dy + dz * dz <= edge_gate2) & sl(pmask) & mask
+        cmnx, cmny, cmnz = sl(pmnx), sl(pmny), sl(pmnz)
+        cmcx, cmcy, cmcz = sl(pmcx), sl(pmcy), sl(pmcz)
+        # hop: does the neighbour's region model accept this point?
         d = jnp.abs(
             (px - cmcx) * cmnx + (py - cmcy) * cmny + (pz - cmcz) * cmnz
         )
-        c = nx * cmnx + ny * cmny + nz * cmnz
-        if not signed:
-            c = jnp.abs(c)
-        hop_ok = (
-            (clab < inf_label)
-            & near
-            & (d <= th_thickness)
-            & (c >= th_normal_cos)
-        )
+        c = cmag(nx_ * cmnx + ny_ * cmny + nz_ * cmnz)
+        hop_ok = ((clab < inf_label) & near & (d <= th_thickness)
+                  & (c >= th_normal_cos))
         new = jnp.minimum(new, jnp.where(hop_ok, clab, inf_label))
+        # merge hook: mutual model acceptance between the regions
         dcx = cmcx - mcx
         dcy = cmcy - mcy
         dcz = cmcz - mcz
-        mm = mnx * cmnx + mny * cmny + mnz * cmnz
-        if not signed:
-            mm = jnp.abs(mm)
         mutual = (
             (jnp.abs(dcx * mnx + dcy * mny + dcz * mnz) <= th_thickness)
             & (jnp.abs(dcx * cmnx + dcy * cmny + dcz * cmnz) <= th_thickness)
-            & (mm >= th_normal_cos)
+            & (cmag(mnx * cmnx + mny * cmny + mnz * cmnz) >= th_normal_cos)
         )
-        mrg_ok = has & (clab < lab0) & near & mutual
+        mrg_ok = has & (clab < label) & near & mutual
         best = jnp.minimum(best, jnp.where(mrg_ok, clab, inf_label))
-    new_ref[...] = new
-    best_ref[...] = best
+    return new, best
 
 
-@functools.partial(
-    jax.jit,
-    static_argnames=(
-        "n", "w", "tile", "th_thickness", "th_normal_cos", "edge_gate2",
-        "inf_label", "signed", "interpret",
-    ),
-)
-def label_sweep(
-    slab, n, *, w, tile, th_thickness, th_normal_cos, edge_gate2,
-    inf_label, signed=False, interpret=None,
-):
-    """One label-propagation sweep over a pre-built slab.
+def _plane_model(pid, mask, pn, b_tab, max_planes):
+    """(normal f32[n, 3], offset b = n·c f32[n]) of each row's plane id
+    (zeros where the id is 0 or the row is masked)."""
+    t = jnp.clip(pid - 1, 0, max_planes - 1)
+    has = (pid > 0) & mask
+    return (jnp.where(has[:, None], pn[t], 0.0),
+            jnp.where(has, b_tab[t], 0.0))
 
-    Slab rows (:func:`make_slab`, 14 used): 0-2 position, 3-5 normal,
-    6-8 model normal, 9-11 model center, 12 label (fill = inf_label),
-    13 mask.  Returns (new f32[n], best f32[n]).
-    """
-    kernel = functools.partial(
-        _label_kernel, tile=tile, w=w, th_thickness=th_thickness,
-        th_normal_cos=th_normal_cos, edge_gate2=edge_gate2,
-        inf_label=inf_label, signed=signed,
+
+def refine_clean(pid, pos, nrm, mask, pn, b_tab, *, max_planes,
+                 th_thickness, th_normal_cos, signed=False):
+    """Keep a row's plane id (1..P, 0 = none) only where that plane
+    still accepts it.  The plane test is in offset form,
+    |p·n_t − b_t| ≤ th with b_t = n_t·c_t (``b_tab``)."""
+    cmag = _cmag(signed)
+    px, py, pz = pos
+    nx_, ny_, nz_ = nrm
+    mnp, mb = _plane_model(pid, mask, pn, b_tab, max_planes)
+    ok = (
+        (pid > 0)
+        & mask
+        & (jnp.abs(px * mnp[:, 0] + py * mnp[:, 1] + pz * mnp[:, 2] - mb)
+           <= th_thickness)
+        & (cmag(nx_ * mnp[:, 0] + ny_ * mnp[:, 1] + nz_ * mnp[:, 2])
+           >= th_normal_cos)
     )
-    if interpret is None:
-        interpret = _interpret_default()
-    return _sweep_call(kernel, slab, n, w, tile, interpret, n_out=2)
+    return jnp.where(ok, pid, 0)
+
+
+def refine_sweep(pid, pos, nrm, mask, pn, b_tab, padded, *, window,
+                 max_planes, th_thickness, th_normal_cos, edge_gate2,
+                 signed=False, axis_name=None):
+    """One refinement sweep: a row without a plane id adopts the
+    smallest id of a row within ±window and the edge gate whose plane
+    accepts it; rows with an id keep it."""
+    n = pid.shape[0]
+    ws = window
+    cmag = _cmag(signed)
+    px, py, pz = pos
+    nx_, ny_, nz_ = nrm
+    ppx, ppy, ppz, pmask = padded
+    mnp, mb = _plane_model(pid, mask, pn, b_tab, max_planes)
+
+    def pad(a, fill):
+        return pad_rows(a, fill, ws, axis_name)
+
+    ppid = pad(pid, 0)
+    pmnx, pmny, pmnz = pad(mnp[:, 0], 0.0), pad(mnp[:, 1], 0.0), pad(
+        mnp[:, 2], 0.0)
+    pmb = pad(mb, 0.0)
+    big_pid = jnp.int32(max_planes + 1)
+    best = jnp.full((n,), big_pid, jnp.int32)
+    for start in window_starts(ws):
+        sl = lambda a: lax.slice(a, (start,), (start + n,))  # noqa: E731
+        cpid = sl(ppid)
+        dx = px - sl(ppx)
+        dy = py - sl(ppy)
+        dz = pz - sl(ppz)
+        near = dx * dx + dy * dy + dz * dz <= edge_gate2
+        cmnx, cmny, cmnz = sl(pmnx), sl(pmny), sl(pmnz)
+        d = jnp.abs(px * cmnx + py * cmny + pz * cmnz - sl(pmb))
+        c = cmag(nx_ * cmnx + ny_ * cmny + nz_ * cmnz)
+        ok = ((cpid > 0) & near & sl(pmask) & mask
+              & (d <= th_thickness) & (c >= th_normal_cos))
+        best = jnp.minimum(best, jnp.where(ok, cpid, big_pid))
+    return jnp.where(pid > 0, pid, jnp.where(best < big_pid, best, 0))

@@ -37,8 +37,15 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 
+from buildingsegment_tpu.ops.adopt import plane_adopt
 from buildingsegment_tpu.ops.normals import canonicalize_normals
 from buildingsegment_tpu.ops.prefix import prefix_sum_i32
+from buildingsegment_tpu.ops.segsum import plane_sums, table_lookup
+from buildingsegment_tpu.ops.window_sweep import (
+    pad_positions,
+    refine_clean,
+    refine_sweep,
+)
 from buildingsegment_tpu.seg.region_grow import (
     SegmentationResult,
     segment_planes,
@@ -61,10 +68,8 @@ __all__ = ["segment_planes_multigrid"]
         "convergence_tol",
         "levels",
         "axis_name",
-        # static so the TPU Pallas branch can bake them into the kernel
         "th_thickness", "th_normal_cos", "max_edge_dist",
-        "th_anchor_cos", "compact", "seed_mode", "seed_source",
-        "spacing_hint_mm", "heal",
+        "th_anchor_cos", "seed_source", "spacing_hint_mm", "heal",
     ),
 )
 def segment_planes_multigrid(
@@ -99,8 +104,6 @@ def segment_planes_multigrid(
     th_anchor_cos: float = 0.95,
     seed_override=None,
     axis_name: str = None,
-    compact: Optional[bool] = None,
-    seed_mode: Optional[str] = None,
     seed_source: Optional[str] = None,
     spacing_hint_mm: Optional[float] = None,
     # finalize healing: True = coplanar merge + flat-plane hole
@@ -124,23 +127,8 @@ def segment_planes_multigrid(
     (psum/pmin) label resolution — see :func:`segment_planes`.
     """
     n, k = neigh_idx.shape
-    if axis_name is not None:
-        from buildingsegment_tpu.dist.halo import halo_pad as _halo
-
-        def _pad_rows(a, fill, w):
-            return _halo(a, w, axis_name)
-
-        def _psum(x):
-            return lax.psum(x, axis_name)
-
-    else:
-
-        def _pad_rows(a, fill, w):
-            f = jnp.full((w,) + a.shape[1:], fill, a.dtype)
-            return jnp.concatenate([f, a, f])
-
-        def _psum(x):
-            return x
+    def _psum(x):
+        return x if axis_name is None else lax.psum(x, axis_name)
 
     if n % group:
         raise ValueError(f"N={n} must be a multiple of group={group}")
@@ -209,30 +197,8 @@ def segment_planes_multigrid(
     )
     gmask = (cnt > 0) & coherent
 
-    # Shared STATIC slab (position/normal/mask rows) for the seed sweep
-    # and every refine sweep of this solve — each used to rebuild the
-    # full 8-row slab (~2 ms of XLA copy per sweep at 1M points)
-    from buildingsegment_tpu.ops.window_sweep import (
-        build_plane_table,
-        make_dyn_row,
-        make_spine,
-        pick_tile,
-        refine_table_sweep_pair,
-    )
-
     px, py, pz = pos[:, 0], pos[:, 1], pos[:, 2]
     nx_, ny_, nz_ = nrm[:, 0], nrm[:, 1], nrm[:, 2]
-    tile = pick_tile(n, 32768)  # fewer grid steps (see window_seeds)
-    from buildingsegment_tpu.utils.platform import use_device_kernels
-
-    on_tpu = use_device_kernels() and tile
-    maskf = mask.astype(jnp.float32)
-    spine = (
-        make_spine((px, py, pz), (nx_, ny_, nz_), maskf, window, tile,
-                   axis_name=axis_name)
-        if on_tpu
-        else None
-    )
 
     # coarse seed rule: the group contains a strict fine-level seed
     # (the gather-free windowized depth-0 rule — see window_seeds)
@@ -281,9 +247,6 @@ def segment_planes_multigrid(
             th_normal_cos=th_normal_cos,
             signed_normals=signed_normals,
             axis_name=axis_name,
-            spine=spine,
-            spine_tile=tile if spine is not None else 0,
-            seed_mode=seed_mode,
         )
         if curvature is not None and th_seed_curvature is not None:
             fine_seed = fine_seed & (
@@ -324,7 +287,6 @@ def segment_planes_multigrid(
             levels=levels - 1,
             th_anchor_cos=th_anchor_cos,
             axis_name=axis_name,
-            compact=compact,
             spacing_hint_mm=child_hint,
             heal=True,
         )
@@ -348,7 +310,6 @@ def segment_planes_multigrid(
             window=window,
             th_anchor_cos=th_anchor_cos,
             axis_name=axis_name,
-            compact=compact,
         )
 
     # ------------------------------------------------------------------
@@ -356,121 +317,33 @@ def segment_planes_multigrid(
     # ------------------------------------------------------------------
     pn = coarse.plane_normal  # [P, 3]
     pc = coarse.plane_center
-    n_live = coarse.num_planes
     plane_id_g = jnp.maximum(coarse.plane_idx, 0)  # [ng], 0 = none
     pid0 = jnp.repeat(plane_id_g, group)  # expand to points
 
     # plane-band test in offset form: |p·n_t − b_t| ≤ th with
-    # b_t = n_t·c_t — algebraically |(p−c_t)·n_t|, and the form the
-    # Pallas kernel uses (in-kernel one-hot table matmul instead of the
-    # ~13 ms/sweep [N,3] XLA table gathers)
+    # b_t = n_t·c_t — algebraically |(p−c_t)·n_t| (ops/window_sweep.py)
     b_tab = jnp.sum(
         pn.astype(jnp.float32) * pc.astype(jnp.float32), axis=-1
     )
-    ws = window
     edge_gate2 = float(
         max_edge_dist if max_edge_dist is not None else 2.0 * th_thickness
     ) ** 2
-
-    if on_tpu:
-        table = build_plane_table(pn, pc)
-        pid = pid0
-        for s in range(max(1, refine_sweeps)):
-            dyn = make_dyn_row(
-                pid.astype(jnp.float32), 0.0, ws, tile,
-                axis_name=axis_name,
-            )
-            pid_f = refine_table_sweep_pair(
-                spine, dyn, n, table, n_live,
-                w=ws, tile=tile,
-                th_thickness=float(th_thickness),
-                th_normal_cos=float(th_normal_cos),
-                edge_gate2=edge_gate2,
-                big_pid=float(max_planes + 1),
-                signed=signed_normals,
-                clean=(s == 0),  # fuse the self-accept cleaning pass
-                adopt=refine_sweeps > 0,
-            )
-            pid = pid_f.astype(jnp.int32)
-    else:
-        # XLA path (CPU): same math, same offset-form plane test
-        def model_of(pid):
-            t = jnp.clip(pid - 1, 0, max_planes - 1)
-            has = (pid > 0) & mask
-            mnp = jnp.where(has[:, None], pn[t], 0.0)
-            mb = jnp.where(has, b_tab[t], 0.0)
-            return mnp, mb
-
-        mnp0, mb0 = model_of(pid0)
-        self_ok = (
-            (pid0 > 0)
-            & mask
-            & (
-                jnp.abs(px * mnp0[:, 0] + py * mnp0[:, 1]
-                        + pz * mnp0[:, 2] - mb0)
-                <= th_thickness
-            )
-            & (
-                cmag(nx_ * mnp0[:, 0] + ny_ * mnp0[:, 1]
-                     + nz_ * mnp0[:, 2])
-                >= th_normal_cos
-            )
+    pos3, nrm3 = (px, py, pz), (nx_, ny_, nz_)
+    gates = dict(max_planes=max_planes, th_thickness=th_thickness,
+                 th_normal_cos=th_normal_cos, signed=signed_normals)
+    pid = refine_clean(pid0, pos3, nrm3, mask, pn, b_tab, **gates)
+    padded = pad_positions(pos3, mask, window, axis_name)
+    for _ in range(refine_sweeps):
+        pid = refine_sweep(
+            pid, pos3, nrm3, mask, pn, b_tab, padded, window=window,
+            edge_gate2=edge_gate2, axis_name=axis_name, **gates,
         )
-        pid = jnp.where(self_ok, pid0, 0)
-
-        pmask_w = _pad_rows(mask, False, ws)
-        ppx = _pad_rows(px, -3e7, ws)
-        ppy = _pad_rows(py, -3e7, ws)
-        ppz = _pad_rows(pz, -3e7, ws)
-        big_pid = jnp.int32(max_planes + 1)
-
-        def sweep(pid):
-            mnp_, mb_ = model_of(pid)
-            ppid = _pad_rows(pid, 0, ws)
-            pmnx = _pad_rows(mnp_[:, 0], 0.0, ws)
-            pmny = _pad_rows(mnp_[:, 1], 0.0, ws)
-            pmnz = _pad_rows(mnp_[:, 2], 0.0, ws)
-            pmb = _pad_rows(mb_, 0.0, ws)
-            # fully unrolled static 1-D slices (fori+dynamic_slice is
-            # kernel-launch bound — see ops/fused.py sweep comment)
-            best = jnp.full((n,), big_pid, jnp.int32)
-            for slot in range(2 * ws):
-                start = slot if slot < ws else slot + 1
-                sl = lambda a: lax.slice(a, (start,), (start + n,))
-                cpid = sl(ppid)
-                cmask_ = sl(pmask_w)
-                dx = px - sl(ppx)
-                dy = py - sl(ppy)
-                dz = pz - sl(ppz)
-                near = dx * dx + dy * dy + dz * dz <= edge_gate2
-                cmnx, cmny, cmnz = sl(pmnx), sl(pmny), sl(pmnz)
-                d = jnp.abs(
-                    px * cmnx + py * cmny + pz * cmnz - sl(pmb)
-                )
-                c = cmag(nx_ * cmnx + ny_ * cmny + nz_ * cmnz)
-                ok = (
-                    (cpid > 0)
-                    & near
-                    & cmask_
-                    & mask
-                    & (d <= th_thickness)
-                    & (c >= th_normal_cos)
-                )
-                best = jnp.minimum(best, jnp.where(ok, cpid, big_pid))
-            return jnp.where(
-                pid > 0, pid, jnp.where(best < big_pid, best, 0)
-            )
-
-        for _ in range(refine_sweeps):
-            pid = sweep(pid)
 
     # ------------------------------------------------------------------
     # 4. finalize: recount, MERGE coplanar overlapping planes, cull
     # (> th_point_count), renumber densely.  One combined segment
     # stats pass over OLD ids; the new (dense) table is a permutation
-    # of its kept (merged-root) rows.  On TPU the stats use the
-    # sort-free one-hot segsum kernel (each XLA scatter-add hides a
-    # full N-row sort, ~10 ms at 1M rows).
+    # of its kept (merged-root) rows.
     #
     # The merge pass exists because the per-level refine sweeps adopt
     # by MIN plane id: when the coarse solve leaves part of a plane
@@ -492,38 +365,8 @@ def segment_planes_multigrid(
         [jnp.ones((n, 1), jnp.float32), cn, pos, sq], axis=1
     )  # [n, 8]: cnt, Σn̂, Σp, Σ|p|²
     member = mask & (pid > 0)
-    acc_mq = None  # kernel-path moments about the coarse centers
-    if on_tpu:
-        from buildingsegment_tpu.ops.segsum import (
-            plane_payload_moment_sums,
-            plane_sums,
-            table_lookup,
-        )
-
-        cap128 = -(-max_planes // 128) * 128
-        old_row = jnp.where(member, pid - 1, cap128)
-        if heal:
-            # one fused pass: payload sums + second moments about the
-            # COARSE plane centers q (parallel-axis shift to the
-            # first-pass centers below replaces the exact two-pass
-            # centered-moments computation — ops/segsum.py docstring)
-            accA, accMq = plane_payload_moment_sums(
-                old_row, payload, pc.astype(jnp.float32), n_live,
-                table_cap=max_planes,
-            )
-            acc = accA[:max_planes]
-            acc_mq = _psum(accMq[:max_planes])
-        else:
-            acc = plane_sums(
-                old_row, payload, n_live, table_cap=max_planes,
-            )[:max_planes]
-    else:
-        old_row = jnp.where(member, pid - 1, max_planes)
-        acc = (
-            jnp.zeros((max_planes + 1, 8), jnp.float32)
-            .at[old_row]
-            .add(jnp.where(member[:, None], payload, 0.0))
-        )[:max_planes]
+    old_row = jnp.where(member, pid - 1, max_planes)
+    acc = plane_sums(old_row, payload, max_planes, table_cap=max_planes)
     acc = _psum(acc)  # global when sharded
 
     # --- coplanar-overlap union on the [P] table (heal=True only) ---
@@ -564,38 +407,18 @@ def segment_planes_multigrid(
         # never starts.  Moments are accumulated about each plane's OWN
         # first-pass center: raw Σppᵀ at mm scale cancels catastrophically
         # in f32 (CLAUDE.md), centered sums keep ~mm² absolute error.
-        if on_tpu:
-            # moments already accumulated about the COARSE centers q
-            # in the fused pass-1 kernel; parallel-axis shift to each
-            # plane's own first-pass center c_t:
-            #   M_c = M_q − cnt·(c−q)(c−q)ᵀ
-            # |c−q| ≲ the plane extent by construction (both are
-            # member means of the same plane), keeping f32 error far
-            # below the RMS gates (ops/segsum.py docstring).
-            dq = c_t - pc.astype(jnp.float32)
-            shift = jnp.stack(
-                [dq[:, 0] * dq[:, 0], dq[:, 1] * dq[:, 1],
-                 dq[:, 2] * dq[:, 2], dq[:, 0] * dq[:, 1],
-                 dq[:, 0] * dq[:, 2], dq[:, 1] * dq[:, 2]], axis=1
-            )  # [P, 6]
-            acc_m = acc_mq - cnt_o[:, None] * shift
-        else:
-            ct_pad = jnp.concatenate(
-                [c_t, jnp.zeros((1, 3), jnp.float32)], axis=0
-            )
-            pcx = ct_pad[old_row]
-            dxc = jnp.where(member[:, None], pos - pcx, 0.0)
-            mom = jnp.stack(
-                [dxc[:, 0] * dxc[:, 0], dxc[:, 1] * dxc[:, 1],
-                 dxc[:, 2] * dxc[:, 2], dxc[:, 0] * dxc[:, 1],
-                 dxc[:, 0] * dxc[:, 2], dxc[:, 1] * dxc[:, 2]], axis=1
-            )  # [n, 6]: xx, yy, zz, xy, xz, yz about own plane center
-            acc_m = (
-                jnp.zeros((max_planes + 1, 6), jnp.float32)
-                .at[old_row]
-                .add(jnp.where(member[:, None], mom, 0.0))
-            )[:max_planes]
-            acc_m = _psum(acc_m)
+        ct_pad = jnp.concatenate(
+            [c_t, jnp.zeros((1, 3), jnp.float32)], axis=0
+        )
+        dxc = jnp.where(member[:, None], pos - ct_pad[old_row], 0.0)
+        mom = jnp.stack(
+            [dxc[:, 0] * dxc[:, 0], dxc[:, 1] * dxc[:, 1],
+             dxc[:, 2] * dxc[:, 2], dxc[:, 0] * dxc[:, 1],
+             dxc[:, 0] * dxc[:, 2], dxc[:, 1] * dxc[:, 2]], axis=1
+        )  # [n, 6]: xx, yy, zz, xy, xz, yz about own plane center
+        acc_m = _psum(
+            plane_sums(old_row, mom, max_planes, table_cap=max_planes)
+        )
 
         nc = jnp.sum(n_t * c_t, -1)
         ncT = jnp.dot(n_t, c_t.T, preferred_element_type=jnp.float32,
@@ -715,7 +538,7 @@ def segment_planes_multigrid(
             # unlabeled points test directly against the merged plane table:
             # plane-band |p·n−b| ≤ th, normal cos, and in-plane proximity to
             # the plane's extent (2·rms + gate — the point form of the pair
-            # test's reach).  All [N,K]-matmul-shaped: trivial MXU work.
+            # test's reach) — ops/adopt.py.
             # ------------------------------------------------------------------
             K = min(128, max_planes)
             top_cnt, top_row = lax.top_k(acc[:, 0], K)
@@ -733,72 +556,12 @@ def segment_planes_multigrid(
             reachk = 2.0 * rk + jnp.float32(edge_mm)
             lane_ok = ((top_cnt > 0) & flat_ok[top_row]).astype(
                 jnp.float32)  # only flat planes adopt (above)
-            if on_tpu:
-                # fused single-pass kernel: decision + first-min lane +
-                # adoption payload sums in one read of [N,8] (the XLA
-                # form below materializes several [N,K] intermediates
-                # and pays a second plane_sums pass — ops/adopt.py)
-                from buildingsegment_tpu.ops.adopt import (
-                    pack_adopt_tables, plane_adopt,
-                )
-
-                Bm, tabm = pack_adopt_tables(
-                    nk, ck, bk, ccdk, reachk * reachk, lane_ok,
-                    top_row.astype(jnp.float32),
-                )
-                adopted, adopt_row, acc128 = plane_adopt(
-                    payload, holes, Bm, tabm,
-                    th_thickness=float(th_thickness),
-                    th_cos=float(th_normal_cos),
-                    signed=signed_normals,
-                )
-                # fold lane-ordered sums onto merged-root rows (one-hot
-                # matmul — 128 rows, trivial and deterministic)
-                onehot_pr = (
-                    top_row[None, :] == rows_p[:, None]
-                ).astype(jnp.float32)
-                acc_add = jnp.dot(
-                    onehot_pr, acc128,
-                    preferred_element_type=jnp.float32, precision=hi_p,
-                )
-            else:
-                offk = jnp.dot(pos, nk.T,
-                               preferred_element_type=jnp.float32,
-                               precision=hi_p) - bk[None, :]
-                cosk = cmag(jnp.dot(cn, nk.T,
-                                    preferred_element_type=jnp.float32,
-                                    precision=hi_p))
-                d2k = sq + ccdk[None, :] - 2.0 * jnp.dot(
-                    pos, ck.T, preferred_element_type=jnp.float32,
-                    precision=hi_p
-                )
-                inpl2 = jnp.maximum(d2k - offk * offk, 0.0)
-                okk = (
-                    (jnp.abs(offk) <= th_thickness)
-                    & (cosk >= th_normal_cos)
-                    & (inpl2 <= (reachk * reachk)[None, :])
-                    & (lane_ok > 0)[None, :]
-                    & holes[:, None]
-                )
-                off_sel = jnp.where(okk, jnp.abs(offk), jnp.inf)
-                arg = jnp.argmin(off_sel, axis=1)
-                adopted = jnp.any(okk, axis=1)
-                # arg → root row without a [N] gather (one-hot over K)
-                sel = (
-                    lax.broadcasted_iota(jnp.int32, (n, K), 1)
-                    == arg[:, None]
-                ).astype(jnp.float32)
-                adopt_row = jnp.sum(
-                    sel * top_row[None, :].astype(jnp.float32), axis=1
-                ).astype(jnp.int32)
-                # adoption sums fold into the merged table (roots only,
-                # so they land on the rows the renumber reads)
-                add_row = jnp.where(adopted, adopt_row, max_planes)
-                acc_add = (
-                    jnp.zeros((max_planes + 1, 8), jnp.float32)
-                    .at[add_row]
-                    .add(jnp.where(adopted[:, None], payload, 0.0))
-                )[:max_planes]
+            adopted, adopt_row, acc_add = plane_adopt(
+                payload, holes, nk, ck, bk, ccdk, reachk * reachk,
+                lane_ok, top_row, table_cap=max_planes,
+                th_thickness=th_thickness, th_cos=th_normal_cos,
+                signed=signed_normals,
+            )
             acc = acc + _psum(acc_add)
 
     counts_old = acc[:, 0].astype(jnp.int32)  # by merged root row
@@ -817,18 +580,14 @@ def segment_planes_multigrid(
         jnp.where(keep, rank, 0).astype(jnp.float32),
     ])
     pid_adopt = jnp.where(adopted, adopt_row + 1, 0)
-    if on_tpu:
-        new_id = table_lookup(
-            jnp.where(member, pid, 0), lut, n_live + 1
+    new_id = table_lookup(
+        jnp.where(member, pid, 0), lut, lut.shape[0]
+    ).astype(jnp.int32)
+    if heal is True:
+        # disjoint supports: members and adopted holes
+        new_id = new_id + table_lookup(
+            pid_adopt, lut2, lut2.shape[0]
         ).astype(jnp.int32)
-        if heal is True:
-            new_id = new_id + table_lookup(
-                pid_adopt, lut2, n_live + 1
-            ).astype(jnp.int32)  # disjoint supports
-    else:
-        new_id = lut[jnp.where(member, pid, 0)].astype(jnp.int32)
-        if heal is True:
-            new_id = new_id + lut2[pid_adopt].astype(jnp.int32)
     plane_idx = jnp.where(new_id > 0, new_id, -1).astype(jnp.int32)
 
     # dense table = kept merged-root rows permuted into rank order

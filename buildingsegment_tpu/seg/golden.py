@@ -39,7 +39,7 @@ from typing import List
 
 import numpy as np
 
-__all__ = ["golden_segment", "GoldenPlane"]
+__all__ = ["golden_segment", "golden_seeds", "GoldenPlane"]
 
 _I32_MIN = -(2**31)
 _U32 = 2**32
@@ -55,6 +55,28 @@ def _div_sizet(v: int, n: int) -> int:
     if v >= 0:
         return v // n
     return _wrap_i32(np.int64((v % 2**64) // n))
+
+
+def golden_seeds(
+    positions: np.ndarray,
+    normals: np.ndarray,
+    neigh: np.ndarray,
+    *,
+    k: int = 15,
+    th_thickness: float = 300.0,
+    th_normal_cos: float = 0.88,
+) -> np.ndarray:
+    """The depth-0 strictness rule on an unlabelled cloud: bool[N], True
+    where ``Broad(i, 0)`` selects ALL k−1 neighbours of slot 1..k−1
+    (|(p_j − p_i)·n_i| ≤ th and n_i·n_j ≥ cos, tmc3/my_function.cpp:
+    224-239) — i.e. where point i can seed a plane before any label
+    exists."""
+    pos = positions.astype(np.int64)
+    nrm = normals.astype(np.float64)
+    nb = neigh[:, 1:k]
+    dist = np.abs(np.einsum("nkd,nd->nk", pos[nb] - pos[:, None, :], nrm))
+    cos = np.einsum("nkd,nd->nk", nrm[nb], nrm)
+    return np.all((dist <= th_thickness) & (cos >= th_normal_cos), axis=1)
 
 
 @dataclasses.dataclass

@@ -1,6 +1,6 @@
 """Planar region growing — parallel fixed-point label propagation.
 
-TPU-native re-expression of the reference's sequential recursive region
+Data-parallel re-expression of the reference's sequential recursive region
 growing (``seg_plane::{get_planes, Broad}``, tmc3/my_function.cpp:
 180-258).  The reference scans points in index order and grows one plane
 at a time by DFS with an evolving mean plane model — O(n²), unbounded
@@ -45,7 +45,6 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-import os
 from typing import Optional
 
 import jax
@@ -53,40 +52,29 @@ import jax.numpy as jnp
 from jax import lax
 
 from buildingsegment_tpu.ops.normals import canonicalize_normals
-from buildingsegment_tpu.utils.platform import (
-    use_device_kernels as _use_device_kernels,
-)
 from buildingsegment_tpu.ops.prefix import prefix_sum_i32
+from buildingsegment_tpu.ops.window_sweep import (
+    label_sweep,
+    pad_positions,
+    pad_rows,
+    window_starts,
+)
 
 __all__ = ["segment_planes", "window_seeds", "SegmentationResult"]
 
 # Jump-doubling rounds per sweep for the windowized path's merge-chain
-# collapse (read at trace time; BST_JUMP_ROUNDS is a perf-lab knob —
-# each round is a latency-bound [ng] gather, and chains deeper than
-# 2^rounds simply resolve one sweep later).  Lab-measured at ng=67k:
-# 2 rounds cut the sweep from 6.9 to 5.0 ms with NO extra sweeps to
-# convergence (tools/perf_sweep_lab.py, jump6 82.7 ms/11 sweeps vs
-# jump2 56.9 ms/10) — one sweep of window+global hooks simply does not
-# build chains deeper than 4.  The fixed point itself is unchanged
-# (min-label union is confluent; residue collapses next sweep).
-_JUMP_ROUNDS = int(os.environ.get("BST_JUMP_ROUNDS", "2"))
-
-# Default switch for the compact-space coarse solver
-# (ops/compact_sweep.py) — ON since the hardware validation: labels
-# bit-identical to the XLA loop on a real v5e chip, coarse solve
-# 25.45 ms vs 34.76 (ng=67k) and the production multigrid winner uses
-# it (perf_winner).  BST_COMPACT=0 is the kill switch; the None-config
-# path below still requires the TPU kernel platform and ng > COMPACT_L,
-# so CPU runs keep the XLA loop.
-_COMPACT_DEFAULT = os.environ.get("BST_COMPACT", "1") == "1"
+# collapse.  Each round is a latency-bound [ng] gather; chains deeper
+# than 2^rounds simply resolve one sweep later, and one sweep of
+# window+global hooks does not build chains deeper than 4.  The fixed
+# point itself is unchanged (min-label union is confluent).
+_JUMP_ROUNDS = 2
 
 
 @functools.partial(
     jax.jit,
     static_argnames=(
-        "window", "signed_normals", "axis_name", "spine_tile",
-        # static so the TPU Pallas branch can bake them into the kernel
-        "th_thickness", "th_normal_cos", "seed_mode",
+        "window", "signed_normals", "axis_name", "th_thickness",
+        "th_normal_cos",
     ),
 )
 def window_seeds(
@@ -100,9 +88,6 @@ def window_seeds(
     th_normal_cos: float = 0.88,
     signed_normals: bool = False,
     axis_name: str = None,
-    spine: Optional[jax.Array] = None,
-    spine_tile: int = 0,
-    seed_mode: Optional[str] = None,
 ) -> jax.Array:
     """Strict depth-0 seed rule over ±window slices, gather-free.
 
@@ -130,114 +115,14 @@ def window_seeds(
 
     px, py, pz = pos[:, 0], pos[:, 1], pos[:, 2]
     nx_, ny_, nz_ = nrm[:, 0], nrm[:, 1], nrm[:, 2]
-
-    # Pallas mega-kernel on TPU (VMEM-resident slab; see
-    # ops/window_sweep.py); CPU keeps the XLA path
-    from buildingsegment_tpu.ops.window_sweep import (
-        make_dyn_row,
-        make_slab,
-        pick_tile,
-        seed_sweep,
-        seed_sweep_pair,
-    )
-
-    # tile 32768 = half the grid steps of 16384; lab-measured ~1 ms
-    # faster on the seed kernel at 1M (tools/perf_slab_lab.py)
-    tile = pick_tile(n, 32768)
-    if seed_mode is None:
-        # "sym" adopted as the default (perf_winner on one v5e chip:
-        # 4.04 ms vs 4.90 for the pair sweep at 1.08M points;
-        # bit-identical output — tests/test_window_sweep.py)
-        seed_mode = os.environ.get("BST_SEED_MODE", "sym")
-    if _use_device_kernels() and tile:
-        if spine is not None and spine_tile == tile:
-            # shared spine (coarse.py builds it once per solve); only
-            # the seed-ball row is assembled here
-            dyn = make_dyn_row(
-                kth_sq_dist.astype(jnp.float32), 0.0, ws, tile,
-                axis_name=axis_name,
-            )
-            if seed_mode == "mxu":
-                from buildingsegment_tpu.ops.stats_mxu import (
-                    seed_sweep_mxu,
-                )
-
-                bad_f = seed_sweep_mxu(
-                    spine, dyn, n, w=ws, tile=tile,
-                    th_thickness=float(th_thickness),
-                    th_normal_cos=float(th_normal_cos),
-                    signed=signed_normals,
-                )
-            else:
-                bad_f = seed_sweep_pair(
-                    spine, dyn, n,
-                    w=ws, tile=tile,
-                    th_thickness=float(th_thickness),
-                    th_normal_cos=float(th_normal_cos),
-                    signed=signed_normals,
-                    sym=(seed_mode == "sym"),
-                )
-            return mask & (bad_f < 0.5)
-        if seed_mode == "mxu":
-            from buildingsegment_tpu.ops.stats_mxu import seed_sweep_mxu
-            from buildingsegment_tpu.ops.window_sweep import make_spine
-
-            sp = make_spine(
-                (px, py, pz), (nx_, ny_, nz_),
-                mask.astype(jnp.float32), ws, tile,
-                axis_name=axis_name,
-            )
-            dyn = make_dyn_row(
-                kth_sq_dist.astype(jnp.float32), 0.0, ws, tile,
-                axis_name=axis_name,
-            )
-            bad_f = seed_sweep_mxu(
-                sp, dyn, n, w=ws, tile=tile,
-                th_thickness=float(th_thickness),
-                th_normal_cos=float(th_normal_cos),
-                signed=signed_normals,
-            )
-            return mask & (bad_f < 0.5)
-        slab = make_slab(
-            [px, py, pz, nx_, ny_, nz_,
-             kth_sq_dist.astype(jnp.float32),
-             mask.astype(jnp.float32)],
-            [-3e7, -3e7, -3e7, 0.0, 0.0, 0.0, 0.0, 0.0],
-            ws, tile, axis_name=axis_name, rows_out=8,
-        )
-        bad_f = seed_sweep(
-            slab, n,
-            w=ws, tile=tile,
-            th_thickness=float(th_thickness),
-            th_normal_cos=float(th_normal_cos),
-            signed=signed_normals,
-        )
-        return mask & (bad_f < 0.5)
-
-    # padded 1-D COMPONENT arrays: [n,3] slices lane-pad 128/3× per
-    # unrolled copy; 1-D static slices are pure fusable views
-    if axis_name is not None:
-        from buildingsegment_tpu.dist.halo import halo_pad
-
-        def _pad1(a, fill):
-            return halo_pad(a, ws, axis_name)
-
-    else:
-
-        def _pad1(a, fill):
-            f = jnp.full((ws,), fill, a.dtype)
-            return jnp.concatenate([f, a, f])
-
-    ppx, ppy, ppz = _pad1(px, -3e7), _pad1(py, -3e7), _pad1(pz, -3e7)
-    pnx, pny, pnz = _pad1(nx_, 0.0), _pad1(ny_, 0.0), _pad1(nz_, 0.0)
-    smask_p = _pad1(mask, False)
+    ppx, ppy, ppz, smask_p = pad_positions((px, py, pz), mask, ws, axis_name)
+    pnx, pny, pnz = (pad_rows(a, 0.0, ws, axis_name) for a in (nx_, ny_, nz_))
 
     # fully unrolled static slices (fori+dynamic_slice is kernel-launch
     # bound — see ops/fused.py sweep comment)
     bad = jnp.zeros((n,), bool)
-    for slot in range(2 * ws):
-        start = slot if slot < ws else slot + 1
-        sl = lambda a: lax.slice(a, (start,), (start + n,))
+    for start in window_starts(ws):
+        sl = lambda a: lax.slice(a, (start,), (start + n,))  # noqa: E731
         cmask_ = sl(smask_p)
         dx = sl(ppx) - px
         dy = sl(ppy) - py
@@ -291,9 +176,8 @@ class SegmentationResult:
     static_argnames=(
         "th_point_count", "max_planes", "max_sweeps", "signed_normals",
         "propagation", "window", "convergence_tol", "axis_name",
-        # static so the TPU Pallas branch can bake them into the kernel
         "th_thickness", "th_normal_cos", "max_edge_dist",
-        "th_anchor_cos", "compact",
+        "th_anchor_cos",
     ),
 )
 def segment_planes(
@@ -318,7 +202,6 @@ def segment_planes(
     window: int = 16,
     th_anchor_cos: float = 0.95,
     axis_name: str = None,
-    compact: Optional[bool] = None,
 ) -> SegmentationResult:
     """Segment a point cloud into planar regions.
 
@@ -573,9 +456,9 @@ def segment_planes(
         )[:n]
         cnt = acc16[:, 0]
 
-        # Compact live labels into [L] slots by cumsum rank — TPU top_k
-        # with large k lowers to a pathological full sort (~100 s at
-        # 1M), so compaction must stay sort-free.  Labels beyond L
+        # Compact live labels into [L] slots by cumsum rank — top_k
+        # with a large k lowers to a full sort, so compaction stays
+        # sort-free.  Labels beyond L
         # (massive over-fragmentation) fall off; the outer loop's next
         # iteration retries after earlier merges shrink the count.
         flag = cnt > 0
@@ -695,52 +578,17 @@ def segment_planes(
     # windowized propagation (requires Morton-sorted input): edges are
     # "within ±window in sorted order AND within max_edge_dist" — every
     # neighbor access is a contiguous shifted slice, no [N, K] gathers
-    # (XLA gathers run ~2 GB/s on TPU; slices stream at HBM speed).
+    # (ops/window_sweep.py).
     # ------------------------------------------------------------------
     ws = window
     edge_gate2 = jnp.float32(
         (max_edge_dist if max_edge_dist is not None else 2 * th_thickness) ** 2
     )
-
-    if axis_name is not None:
-        from buildingsegment_tpu.dist.halo import halo_pad
-
-        def _pad_rows(a, fill):
-            # halo rows come from the ring neighbors; global-edge shards
-            # get zeros, gated by the halo-exchanged mask exactly like
-            # the constant sentinel padding is
-            return halo_pad(a, ws, axis_name)
-
-    else:
-
-        def _pad_rows(a, fill):
-            padshape = (ws,) + a.shape[1:]
-            f = jnp.full(padshape, fill, a.dtype)
-            return jnp.concatenate([f, a, f])
-
-    # padded 1-D COMPONENT arrays: slicing an [n, 3] array lane-pads the
-    # 3-wide axis 128/3× per unrolled copy (measured 4× slowdown);
-    # 1-D static slices are pure fusable views
+    # 1-D component rows (see ops/window_sweep.py), positions padded
+    # once per solve
     px, py, pz = pos[:, 0], pos[:, 1], pos[:, 2]
     nx_, ny_, nz_ = nrm[:, 0], nrm[:, 1], nrm[:, 2]
-
-    # Pallas mega-kernel on TPU (VMEM-resident slab; kernel↔XLA
-    # equality pinned by tests/test_window_sweep.py); CPU keeps XLA
-    from buildingsegment_tpu.ops.window_sweep import (
-        label_sweep,
-        make_slab,
-        pick_tile,
-    )
-
-    _sweep_tile = pick_tile(n)
-    _use_kernel = _use_device_kernels() and bool(_sweep_tile)
-    if _use_kernel:
-        maskf_r = mask.astype(jnp.float32)
-    else:
-        ppx = _pad_rows(px, -3e7)
-        ppy = _pad_rows(py, -3e7)
-        ppz = _pad_rows(pz, -3e7)
-        pmask_w = _pad_rows(mask, False)
+    padded = pad_positions((px, py, pz), mask, ws, axis_name)
 
     # Per-sweep global-merge table capacity.  Capped independently of
     # max_planes (the OUTPUT capacity): the [L, L] pair tests cost
@@ -777,11 +625,11 @@ def segment_planes(
         r = jnp.sqrt(jnp.maximum(sq - jnp.sum(c * c, -1), 0.0))
         return sn / ln, c, r, cnt_a
 
-    def window_body(label, singleton=False):
+    def window_body(label):
         """One fused iteration of windowized region growing.
 
-        Engineering shape (every TPU cost center gets exactly one
-        instance per iteration):
+        Engineering shape (every cost center gets exactly one instance
+        per iteration):
           1. per-label stats via ONE combined [N,16] scatter-add — XLA
              lowers each scatter-add to a hidden sort, so the all-member
              and anchor-pure [cnt, Σn̂, Σp, Σ|p|²] sums share a single
@@ -795,58 +643,22 @@ def segment_planes(
              [L]-sized gathers are free, unlike [N]-sized pointer
              chasing;
           5. one [N] gather applies the collapsed parents.
-
-        ``singleton=True`` specializes the FIRST sweep (labels are all
-        singletons — label == own gid or inf by construction): the
-        stats row of label g IS point g's payload row, its model IS the
-        point's own normal/position, and the anchor is the point's own
-        normal — the [N,16] scatter-add, the anchor-purity gather and
-        the packed [N,6] model gather all collapse to elementwise ops
-        (bit-identical values: a single-update scatter adds exactly one
-        term, and the same normalize runs either way).  Single-device
-        only (``valid`` is a local mask; the sharded path keeps the
-        psum'd table).
         """
         valid = label < inf_label
 
-        if singleton:
-            if anchor_gate:
-                agree = cmag(jnp.sum(sum_nrm_src * sum_nrm_src, -1))
-                pure_v = valid & (agree >= jnp.float32(th_anchor_cos))
-                payload = jnp.concatenate(
-                    [jnp.where(valid[:, None], _payload8_sq, 0.0),
-                     jnp.where(pure_v[:, None], _payload8_sq, 0.0)],
-                    axis=1,
-                )
-            else:
-                payload = jnp.where(valid[:, None], _payload8_sq, 0.0)
-            flag = valid
-            # own-row model: same normalize as acc_models on the
-            # single-update stats row
-            ln = jnp.sqrt(jnp.maximum(
-                jnp.sum(sum_nrm_src * sum_nrm_src, -1, keepdims=True),
-                1e-20,
-            ))
-            mp = jnp.where(
-                valid[:, None],
-                jnp.concatenate([sum_nrm_src / ln, pos], axis=1),
-                0.0,
-            )
-            acc = None
-        else:
-            tgt = jnp.where(valid, label, ng)
+        tgt = jnp.where(valid, label, ng)
 
-            # 1. combined segment stats over the global label space —
-            # per-shard partial scatters, one psum
-            payload = stats_payload(label, valid, with_sq=True)
-            acc = (
-                jnp.zeros((ng + 1, payload.shape[1]), jnp.float32)
-                .at[tgt]
-                .add(payload)
-            )[:ng]
-            acc = _allreduce(acc, "sum")
-            model_n, model_c, _model_r, cnt = acc_models(acc)
-            flag = cnt > 0
+        # 1. combined segment stats over the global label space —
+        # per-shard partial scatters, one psum
+        payload = stats_payload(label, valid, with_sq=True)
+        acc = (
+            jnp.zeros((ng + 1, payload.shape[1]), jnp.float32)
+            .at[tgt]
+            .add(payload)
+        )[:ng]
+        acc = _allreduce(acc, "sum")
+        model_n, model_c, _model_r, cnt = acc_models(acc)
+        flag = cnt > 0
 
         # 2. compact live labels → [L] slots (cumsum rank, no sort) —
         # replicated compute over the (replicated) stats table.  ONE
@@ -862,88 +674,22 @@ def segment_planes(
         top_lab = jnp.maximum(top_lab, 0)
 
         # 3. slice sweep: hop-min + merge-hook candidates.  ONE packed
-        # [ng, 6] model gather (XLA gathers pay per-op fixed cost on
-        # top of their ~2 GB/s streaming rate — two [ng, 3] gathers
-        # cost two of each)
-        has = valid
-        if not singleton:
-            safe = jnp.clip(label, 0, ng - 1)
-            model_nc = jnp.concatenate([model_n, model_c], axis=1)
-            mp = jnp.where(has[:, None], model_nc[safe], 0.0)
-        mnx, mny, mnz = mp[:, 0], mp[:, 1], mp[:, 2]
-        mcx, mcy, mcz = mp[:, 3], mp[:, 4], mp[:, 5]
-
-        if _use_kernel:
-            slab = make_slab(
-                [px, py, pz, nx_, ny_, nz_, mnx, mny, mnz,
-                 mcx, mcy, mcz, label.astype(jnp.float32), maskf_r],
-                [-3e7, -3e7, -3e7] + [0.0] * 9 + [float(ng), 0.0],
-                ws, _sweep_tile, axis_name=axis_name,
-            )
-            new_f, best_f = label_sweep(
-                slab, n,
-                w=ws, tile=_sweep_tile,
-                th_thickness=float(th_thickness),
-                th_normal_cos=float(th_normal_cos),
-                edge_gate2=float(
-                    max_edge_dist if max_edge_dist is not None
-                    else 2 * th_thickness
-                ) ** 2,
-                inf_label=float(ng),
-                signed=signed_normals,
-            )
-            new = new_f.astype(jnp.int32)
-            best = best_f.astype(jnp.int32)
-        else:
-            plab = _pad_rows(label, inf_label)
-            pmnx = _pad_rows(mnx, 0.0)
-            pmny = _pad_rows(mny, 0.0)
-            pmnz = _pad_rows(mnz, 0.0)
-            pmcx = _pad_rows(mcx, 0.0)
-            pmcy = _pad_rows(mcy, 0.0)
-            pmcz = _pad_rows(mcz, 0.0)
-            # fully unrolled static 1-D slices (fori+dynamic_slice is
-            # kernel-launch bound; [n,3] slices lane-pad — see above)
-            new = label
-            best = jnp.full((n,), inf_label, jnp.int32)
-            for slot in range(2 * ws):
-                start = slot if slot < ws else slot + 1  # skip offset 0
-                sl = lambda a: lax.slice(a, (start,), (start + n,))
-                cmask = sl(pmask_w)
-                clab = sl(plab)
-                dx = px - sl(ppx)
-                dy = py - sl(ppy)
-                dz = pz - sl(ppz)
-                near = (dx * dx + dy * dy + dz * dz <= edge_gate2) & cmask & mask
-                cl_ok = clab < inf_label
-                cmnx, cmny, cmnz = sl(pmnx), sl(pmny), sl(pmnz)
-                cmcx, cmcy, cmcz = sl(pmcx), sl(pmcy), sl(pmcz)
-                # hop: does the neighbor's region model accept this point?
-                d = jnp.abs(
-                    (px - cmcx) * cmnx + (py - cmcy) * cmny + (pz - cmcz) * cmnz
-                )
-                c = cmag(nx_ * cmnx + ny_ * cmny + nz_ * cmnz)
-                hop_ok = cl_ok & near & (d <= th_thickness) & (c >= th_normal_cos)
-                new = jnp.minimum(new, jnp.where(hop_ok, clab, inf_label))
-                # merge hook: mutual model acceptance between the regions
-                dcx = cmcx - mcx
-                dcy = cmcy - mcy
-                dcz = cmcz - mcz
-                mutual = (
-                    (jnp.abs(dcx * mnx + dcy * mny + dcz * mnz) <= th_thickness)
-                    & (jnp.abs(dcx * cmnx + dcy * cmny + dcz * cmnz) <= th_thickness)
-                    & (cmag(mnx * cmnx + mny * cmny + mnz * cmnz) >= th_normal_cos)
-                )
-                mrg_ok = has & (clab < label) & near & mutual
-                best = jnp.minimum(best, jnp.where(mrg_ok, clab, inf_label))
+        # [ng, 6] model gather (two [ng, 3] gathers would pay the
+        # per-gather fixed cost twice)
+        safe = jnp.clip(label, 0, ng - 1)
+        model_nc = jnp.concatenate([model_n, model_c], axis=1)
+        mp = jnp.where(valid[:, None], model_nc[safe], 0.0)
+        new, best = label_sweep(
+            (px, py, pz), (nx_, ny_, nz_), mask, label, mp, padded,
+            window=ws, th_thickness=th_thickness,
+            th_normal_cos=th_normal_cos, edge_gate2=edge_gate2,
+            inf_label=inf_label, signed=signed_normals,
+            axis_name=axis_name,
+        )
 
         # 4b. global coplanar-overlap pairs on the compact table
-        # (anchor-pure models via the shared 16-col derivation); the
-        # singleton sweep gathers the stats rows straight from the
-        # payload — row g of the virtual table IS payload row g
-        n_tab, c_tab, r_tab, _cnt_tab = acc_models(
-            payload[top_lab] if singleton else acc[top_lab]
-        )
+        # (anchor-pure models via the shared 16-col derivation)
+        n_tab, c_tab, r_tab, _cnt_tab = acc_models(acc[top_lab])
         nc = jnp.sum(n_tab * c_tab, -1)
         ncT = jnp.dot(n_tab, c_tab.T, preferred_element_type=jnp.float32,
             precision=lax.Precision.HIGHEST)
@@ -1052,198 +798,10 @@ def segment_planes(
         _, changed, it, _, _ = state
         return changed & (it < max_sweeps)
 
-    # ------------------------------------------------------------------
-    # compact-space fast path (ops/compact_sweep.py): live labels
-    # collapse geometrically under window+global merges, so after a few
-    # warm XLA sweeps the whole problem fits a [COMPACT_L] slot table
-    # and each remaining sweep runs as ONE Pallas kernel instead of
-    # ~60 XLA ops (scatter hidden sorts + gathers + dispatch floors).
-    # Slots are assigned once in ascending label-rank order, so min-slot
-    # union ≡ min-label union and the fixed point is unchanged (pair
-    # coverage is a superset above the XLA path's per-sweep 1024 cap).
-    # ------------------------------------------------------------------
-    from buildingsegment_tpu.ops.compact_sweep import (
-        COMPACT_L,
-        compact_sweep,
+    label, unconverged, sweeps_used, peak_live, peak_over = lax.while_loop(
+        cond, body,
+        (label0, jnp.bool_(True), jnp.int32(0), jnp.int32(0), jnp.int32(0)),
     )
-
-    if compact is not None:
-        # the compact loop is a window_body re-expression; the graph
-        # path keeps its own machinery regardless of the override.
-        # Structural limits still bind: the compact loop has no
-        # collective variant (sharded solves keep the XLA loop) and the
-        # slot table must fit VMEM.
-        use_compact = (
-            compact
-            and propagation == "window"
-            and (axis_name is None or lax.axis_size(axis_name) == 1)
-            and ng <= 262144
-        )
-    else:
-        use_compact = (
-            _COMPACT_DEFAULT
-            and propagation == "window"
-            and _use_kernel
-            and (axis_name is None or lax.axis_size(axis_name) == 1)
-            and ng > COMPACT_L
-            and ng <= 262144  # whole problem must fit VMEM
-        )
-
-    if not use_compact:
-        label, unconverged, sweeps_used, peak_live, peak_over = (
-            lax.while_loop(
-                cond, body,
-                (label0, jnp.bool_(True), jnp.int32(0), jnp.int32(0),
-                 jnp.int32(0)),
-            )
-        )
-    else:
-        lc = COMPACT_L
-
-        def warm_body(state):
-            label, changed, it, peak_live, peak_over, _live = state
-            label, changed, it, peak_live, peak_over = body(
-                (label, changed, it, peak_live, peak_over)
-            )
-            # post-sweep live recount (window_body's own live count is
-            # the START-of-sweep value — using it in the cond would buy
-            # one extra warm sweep per solve)
-            flags = (
-                jnp.zeros((ng + 1,), jnp.bool_)
-                .at[jnp.minimum(label, inf_label)]
-                .set(True)
-            )[:ng]
-            live_now = jnp.sum(flags.astype(jnp.int32))
-            return (label, changed, it, peak_live, peak_over, live_now)
-
-        def warm_cond(state):
-            _, changed, it, _, _, live_now = state
-            return changed & (it < max_sweeps) & (live_now > lc)
-
-        live_init = jnp.sum((label0 < inf_label).astype(jnp.int32))
-        warm0 = (label0, jnp.bool_(True), jnp.int32(0), jnp.int32(0),
-                 jnp.int32(0), live_init)
-        if max_sweeps >= 1:
-            # peel sweep 1 with the singleton specialization (labels
-            # are all singletons at entry by construction) — skips the
-            # [N,16] stats scatter, the anchor gather and the [N,6]
-            # model gather of the first (and biggest-live) sweep
-            new1, live1, over1 = window_body(label0, singleton=True)
-            flags1 = (
-                jnp.zeros((ng + 1,), jnp.bool_)
-                .at[jnp.minimum(new1, inf_label)]
-                .set(True)
-            )[:ng]
-            live_now1 = jnp.sum(flags1.astype(jnp.int32))
-            nch1 = jnp.sum((new1 != label0).astype(jnp.int32))
-            warm0 = (new1, nch1 >= tol_count, jnp.int32(1), live1,
-                     over1, live_now1)
-        label_w, changed_w, it_w, peak_live, peak_over, live_now = (
-            lax.while_loop(warm_cond, warm_body, warm0)
-        )
-
-        # relabel to compact slots (rank order ⇒ slot order ≡ label
-        # order); lossy only above lc, where the compact loop is
-        # skipped and label_w passes through unchanged
-        flags = (
-            jnp.zeros((ng + 1,), jnp.bool_)
-            .at[jnp.minimum(label_w, inf_label)]
-            .set(True)
-        )[:ng]
-        crank = prefix_sum_i32(flags.astype(jnp.int32))
-        live0 = crank[ng - 1]
-        # the warm loop may exit before its first sweep (live_init ≤
-        # lc) — the peak counter must still see the initial live count
-        peak_live = jnp.maximum(peak_live, live0)
-        can_compact = (
-            (live0 <= lc) & changed_w & (it_w < max_sweeps)
-        )
-        slot_of = jnp.where(flags & (crank <= lc), crank - 1, lc)
-        top_lab = (
-            jnp.full((lc + 1,), -1, jnp.int32)
-            .at[slot_of]
-            .set(idx_arange)
-        )[:lc]
-        clabel0 = jnp.where(
-            label_w < inf_label,
-            slot_of[jnp.clip(label_w, 0, ng - 1)],
-            lc,
-        ).astype(jnp.float32)
-
-        # static slab shapes: tile covers the whole problem (1 grid step)
-        ctile = -(-ng // 128) * 128
-        from buildingsegment_tpu.ops.window_sweep import (
-            make_dyn_row as _mk_dyn,
-            make_slab as _mk_slab,
-        )
-
-        spine16 = _mk_slab(
-            [px, py, pz, nx_, ny_, nz_,
-             sum_nrm_src[:, 0], sum_nrm_src[:, 1], sum_nrm_src[:, 2],
-             mask.astype(jnp.float32)],
-            [-3e7, -3e7, -3e7] + [0.0] * 7,
-            ws, ctile, rows_out=16,
-        )
-        if anchor_gate:
-            anc_c = jnp.where(
-                (top_lab >= 0)[:, None],
-                anchor_tab[jnp.clip(top_lab, 0, ng - 1)],
-                0.0,
-            )  # [lc, 3]
-        else:
-            anc_c = jnp.zeros((lc, 3), jnp.float32)
-        anchor8 = jnp.concatenate(
-            [jnp.transpose(anc_c), jnp.zeros((5, lc), jnp.float32)],
-            axis=0,
-        )
-        edge_gate_val = float(
-            max_edge_dist if max_edge_dist is not None
-            else 2 * th_thickness
-        )
-
-        def compact_body(state):
-            clab, _, it, bound = state
-            dyn = _mk_dyn(clab, float(lc), ws, ctile)
-            new_cl, nchg = compact_sweep(
-                spine16, dyn, anchor8, bound, ng,
-                w=ws, tile=ctile, lc=lc,
-                th_thickness=float(th_thickness),
-                th_normal_cos=float(th_normal_cos),
-                edge_gate2=edge_gate_val ** 2,
-                th_anchor_cos=float(th_anchor_cos),
-                anchor_gate=anchor_gate,
-                signed=signed_normals,
-                jump_rounds=_JUMP_ROUNDS,
-            )
-            # tighten the slot-id bound to the max surviving slot + 1:
-            # min-slot merging skews survivors low, so the kernel's
-            # one-hot chunk loops (its dominant cost at a 7-8k-live
-            # entry) shrink with the problem instead of staying pinned
-            # at the entry live count
-            new_bound = jnp.maximum(
-                jnp.max(jnp.where(new_cl < float(lc), new_cl, 0.0))
-                .astype(jnp.int32) + 1,
-                1,
-            )
-            return (
-                new_cl, nchg >= tol_count.astype(jnp.float32), it + 1,
-                jnp.minimum(new_bound, bound),
-            )
-
-        def compact_cond(state):
-            _, changed, it, _ = state
-            return changed & (it < max_sweeps)
-
-        clabel, unconv_c, sweeps_used, _bound_f = lax.while_loop(
-            compact_cond, compact_body,
-            (clabel0, can_compact, it_w, live0),
-        )
-        cl_i = jnp.clip(clabel.astype(jnp.int32), 0, lc - 1)
-        label_c = jnp.where(
-            clabel < float(lc), top_lab[cl_i], inf_label
-        )
-        label = jnp.where(can_compact, label_c, label_w)
-        unconverged = jnp.where(can_compact, unconv_c, changed_w)
     label = jnp.where(mask, label, inf_label)
 
     # 5. cull small planes (strict >, my_function.cpp:199) — counts are

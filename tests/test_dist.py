@@ -89,12 +89,12 @@ def test_halo_pad_ring():
 
 
 def test_halo_pad_multihop_short_shards():
-    """MULTICHIP_r03 regression: halo width > local shard rows.
+    """Regression: halo width > local shard rows.
 
     8 rows per shard against window 16 (the dryrun's deepest coarse
     level) must still return exactly w rows per side by walking the
-    ring two hops — the r3 single-hop version silently truncated and
-    the static window slices then walked off the padded array."""
+    ring two hops — a single-hop version silently truncated and the
+    static window slices then walked off the padded array."""
     from buildingsegment_tpu.dist.halo import halo_pad
 
     mesh = make_mesh(8)
@@ -115,7 +115,8 @@ def test_halo_pad_multihop_short_shards():
 
 
 def test_dryrun_shape_small_coarse_shards():
-    """The MULTICHIP dryrun's exact shape on the CPU mesh: 4096 points,
+    """``__graft_entry__.dryrun_multichip``'s exact shape on the CPU
+    mesh: 4096 points,
     8 shards, production seg_levels — the deepest coarse level has
     fewer rows per shard than the propagation window."""
     cfg = PipelineConfig(knn_method="window", pad_to_multiple=1024)

@@ -1,25 +1,32 @@
-"""Pallas window-sweep kernels vs the XLA sweeps — exact equality.
+"""The ±W window sweeps (ops/window_sweep.py, window_seeds) vs numpy.
 
-The kernels only run on TPU in production (CPU keeps the XLA path);
-these tests pin kernel↔XLA equality in interpreter mode so a kernel
-regression cannot silently diverge the TPU pipeline.
+Each sweep is re-computed here point by point in numpy float32, in the
+same arithmetic order, so labels and seed masks must match exactly.
+The seed sweep is also checked against the reference's own depth-0
+rule (seg/golden.py) on a graph built from the same window.
 """
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
 from buildingsegment_tpu.core.morton import morton_sort
+from buildingsegment_tpu.ops.normals import estimate_normals_window
 from buildingsegment_tpu.ops.window_sweep import (
-    build_plane_table,
+    FAR,
     label_sweep,
-    make_slab,
-    pick_tile,
-    refine_table_sweep,
-    seed_sweep,
+    pad_positions,
+    pad_rows,
+    refine_clean,
+    refine_sweep,
+    window_starts,
 )
+from buildingsegment_tpu.seg.golden import golden_seeds
+from buildingsegment_tpu.seg.region_grow import window_seeds
 from buildingsegment_tpu.utils.synthetic import make_building_cloud
+
+W = 16
+TH, CTH, EG2 = 300.0, 0.88, 600.0 ** 2
 
 
 @pytest.fixture(scope="module")
@@ -27,351 +34,220 @@ def scene():
     pts, _ = make_building_cloud(seed=9, spacing_mm=140.0, noise_mm=10.0)
     n = len(pts)
     cap = ((n + 1023) // 1024) * 1024
-    pos = np.full((cap, 3), 2**24, np.int32)
+    pos = np.full((cap, 3), 2 ** 24, np.int32)
     pos[:n] = pts
     mask = np.zeros(cap, bool)
     mask[:n] = True
     spos, smask, _ = morton_sort(jnp.asarray(pos), jnp.asarray(mask))
     posf = spos.astype(jnp.float32)
-    # quick unit normals via a crude local estimate (exact values are
-    # irrelevant — the sweeps must agree on WHATEVER inputs)
-    rng = np.random.default_rng(0)
-    nrm = rng.normal(size=(cap, 3))
-    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
-    nrm[:, 2] = np.abs(nrm[:, 2]) + 1.0
-    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
-    return posf, jnp.asarray(nrm.astype(np.float32)), smask, cap
+    nrm, _ = estimate_normals_window(posf, smask, radius=400.0, window=W)
+    return np.asarray(posf), np.asarray(nrm), np.asarray(smask)
 
 
-def _pad1(a, fill, w):
-    f = jnp.full((w,), fill, a.dtype)
-    return jnp.concatenate([f, a, f])
+def _pairs(n, w):
+    """(i, j) index pairs of every in-range window offset."""
+    for o in list(range(-w, 0)) + list(range(1, w + 1)):
+        i = np.arange(max(0, -o), min(n, n - o))
+        yield i, i + o
 
 
-class TestRefineTableSweep:
-    def _xla_ref(self, pos, nrm, mask, pid0, pn, pc, *, w, th, cth, eg2,
-                 max_planes, clean, adopt, n_live):
-        """XLA formulation matching seg/coarse.py's CPU path."""
-        from jax import lax
+def _cols(a):
+    return tuple(jnp.asarray(a[:, c]) for c in range(3))
 
-        n = pos.shape[0]
-        px, py, pz = pos[:, 0], pos[:, 1], pos[:, 2]
-        nx, ny, nz = nrm[:, 0], nrm[:, 1], nrm[:, 2]
-        b_tab = jnp.sum(pn * pc, axis=-1)
-        # ids beyond the live bound never match in the kernel
-        alive = (pid0 >= 1) & (pid0 <= n_live)
 
-        def model_of(pid, ok_extra):
-            t = jnp.clip(pid - 1, 0, max_planes - 1)
-            has = (pid > 0) & mask & ok_extra
-            mnp = jnp.where(has[:, None], pn[t], 0.0)
-            mb = jnp.where(has, b_tab[t], 0.0)
-            return mnp, mb, has
-
-        mnp0, mb0, has0 = model_of(pid0, alive)
-        self_ok = (
-            has0
-            & (jnp.abs(px * mnp0[:, 0] + py * mnp0[:, 1]
-                       + pz * mnp0[:, 2] - mb0) <= th)
-            & (jnp.abs(nx * mnp0[:, 0] + ny * mnp0[:, 1]
-                       + nz * mnp0[:, 2]) >= cth)
+def _label_reference(pos, nrm, mask, lab, model, inf, signed):
+    cm = (lambda x: x) if signed else np.abs
+    new, best = lab.copy(), np.full_like(lab, inf)
+    mn, mc = model[:, :3], model[:, 3:]
+    for i, j in _pairs(len(lab), W):
+        d = pos[i] - pos[j]
+        near = ((d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] + d[:, 2] * d[:, 2]
+                 <= np.float32(EG2)) & mask[i] & mask[j])
+        e = pos[i] - mc[j]
+        dist = np.abs(e[:, 0] * mn[j, 0] + e[:, 1] * mn[j, 1]
+                      + e[:, 2] * mn[j, 2])
+        c = cm(nrm[i, 0] * mn[j, 0] + nrm[i, 1] * mn[j, 1]
+               + nrm[i, 2] * mn[j, 2])
+        hop = (lab[j] < inf) & near & (dist <= TH) & (c >= CTH)
+        np.minimum.at(new, i[hop], lab[j][hop])
+        dc = mc[j] - mc[i]
+        mutual = (
+            (np.abs(dc[:, 0] * mn[i, 0] + dc[:, 1] * mn[i, 1]
+                    + dc[:, 2] * mn[i, 2]) <= TH)
+            & (np.abs(dc[:, 0] * mn[j, 0] + dc[:, 1] * mn[j, 1]
+                      + dc[:, 2] * mn[j, 2]) <= TH)
+            & (cm(mn[i, 0] * mn[j, 0] + mn[i, 1] * mn[j, 1]
+                  + mn[i, 2] * mn[j, 2]) >= CTH)
         )
-        pid = jnp.where(self_ok if clean else has0, pid0, 0)
-        if not adopt:
-            return pid
-
-        mnp_, mb_, _ = model_of(pid, jnp.ones_like(mask))
-        big = jnp.int32(max_planes + 1)
-        ppid = _pad1(pid, 0, w)
-        pmnx = _pad1(mnp_[:, 0], 0.0, w)
-        pmny = _pad1(mnp_[:, 1], 0.0, w)
-        pmnz = _pad1(mnp_[:, 2], 0.0, w)
-        pmb = _pad1(mb_, 0.0, w)
-        ppx = _pad1(px, -3e7, w)
-        ppy = _pad1(py, -3e7, w)
-        ppz = _pad1(pz, -3e7, w)
-        best = jnp.full((n,), big, jnp.int32)
-        for slot in range(2 * w):
-            start = slot if slot < w else slot + 1
-            sl = lambda a: lax.slice(a, (start,), (start + n,))
-            dx = px - sl(ppx)
-            dy = py - sl(ppy)
-            dz = pz - sl(ppz)
-            near = dx * dx + dy * dy + dz * dz <= eg2
-            cmnx, cmny, cmnz = sl(pmnx), sl(pmny), sl(pmnz)
-            d = jnp.abs(px * cmnx + py * cmny + pz * cmnz - sl(pmb))
-            c = jnp.abs(nx * cmnx + ny * cmny + nz * cmnz)
-            cpid = sl(ppid)
-            ok = (
-                (cpid > 0) & near & mask
-                & (d <= th) & (c >= cth)
-            )
-            best = jnp.minimum(best, jnp.where(ok, cpid, big))
-        return jnp.where(pid > 0, pid, jnp.where(best < big, best, 0))
-
-    @pytest.mark.parametrize("clean,adopt", [
-        (True, True), (False, True), (True, False),
-    ])
-    def test_matches_xla(self, scene, clean, adopt):
-        pos, nrm, mask, n = scene
-        w = 16
-        rng = np.random.default_rng(1)
-        max_planes = 256
-        n_live = 140  # exercises the two-chunk live bound
-        pid = jnp.asarray(
-            rng.integers(0, n_live + 1, size=(n,)).astype(np.int32)
-        )
-        pn = rng.normal(size=(max_planes, 3)).astype(np.float32)
-        pn /= np.linalg.norm(pn, axis=1, keepdims=True)
-        pc = rng.uniform(0, 10000, size=(max_planes, 3)).astype(np.float32)
-        pn, pc = jnp.asarray(pn), jnp.asarray(pc)
-        th, cth, eg2 = 300.0, 0.88, 600.0**2
-
-        want = self._xla_ref(
-            pos, nrm, mask, pid, pn, pc, w=w, th=th, cth=cth, eg2=eg2,
-            max_planes=max_planes, clean=clean, adopt=adopt,
-            n_live=n_live,
-        )
-        tile = pick_tile(n, 1024)
-        slab = make_slab(
-            [pos[:, 0], pos[:, 1], pos[:, 2],
-             nrm[:, 0], nrm[:, 1], nrm[:, 2],
-             pid.astype(jnp.float32), mask.astype(jnp.float32)],
-            [-3e7, -3e7, -3e7, 0.0, 0.0, 0.0, 0.0, 0.0],
-            w, tile, rows_out=8,
-        )
-        got = refine_table_sweep(
-            slab, n, build_plane_table(pn, pc), jnp.int32(n_live),
-            w=w, tile=tile, th_thickness=th,
-            th_normal_cos=cth, edge_gate2=eg2,
-            big_pid=float(max_planes + 1),
-            clean=clean, adopt=adopt, interpret=True,
-        ).astype(jnp.int32)
-        np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+        mrg = (lab[i] < inf) & (lab[j] < lab[i]) & near & mutual
+        np.minimum.at(best, i[mrg], lab[j][mrg])
+    return new, best
 
 
-class TestPairSlabVariants:
-    """spine+dyn pair kernels must equal their single-slab originals."""
-
-    def test_refine_pair_matches_single(self, scene):
-        from buildingsegment_tpu.ops.window_sweep import (
-            make_dyn_row,
-            make_spine,
-            refine_table_sweep_pair,
-        )
-
-        pos, nrm, mask, n = scene
-        w = 16
-        rng = np.random.default_rng(2)
-        max_planes = 256
-        n_live = 140
-        pid = jnp.asarray(
-            rng.integers(0, n_live + 1, size=(n,)).astype(np.int32)
-        )
-        pn = rng.normal(size=(max_planes, 3)).astype(np.float32)
-        pn /= np.linalg.norm(pn, axis=1, keepdims=True)
-        pc = rng.uniform(0, 10000, size=(max_planes, 3)).astype(np.float32)
-        pn, pc = jnp.asarray(pn), jnp.asarray(pc)
-        tile = pick_tile(n, 1024)
-        table = build_plane_table(pn, pc)
-        kw = dict(
-            w=w, tile=tile, th_thickness=300.0, th_normal_cos=0.88,
-            edge_gate2=600.0**2, big_pid=float(max_planes + 1),
-            clean=True, adopt=True, interpret=True,
-        )
-        slab = make_slab(
-            [pos[:, 0], pos[:, 1], pos[:, 2],
-             nrm[:, 0], nrm[:, 1], nrm[:, 2],
-             pid.astype(jnp.float32), mask.astype(jnp.float32)],
-            [-3e7, -3e7, -3e7, 0.0, 0.0, 0.0, 0.0, 0.0],
-            w, tile, rows_out=8,
-        )
-        want = refine_table_sweep(
-            slab, n, table, jnp.int32(n_live), **kw
-        )
-        spine = make_spine(
-            (pos[:, 0], pos[:, 1], pos[:, 2]),
-            (nrm[:, 0], nrm[:, 1], nrm[:, 2]),
-            mask.astype(jnp.float32), w, tile,
-        )
-        dyn = make_dyn_row(pid.astype(jnp.float32), 0.0, w, tile)
-        got = refine_table_sweep_pair(
-            spine, dyn, n, table, jnp.int32(n_live), **kw
-        )
-        np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
-
-    def test_seed_pair_matches_single(self, scene):
-        from buildingsegment_tpu.ops.window_sweep import (
-            make_dyn_row,
-            make_spine,
-            seed_sweep_pair,
-        )
-
-        pos, nrm, mask, n = scene
-        w = 16
-        tile = pick_tile(n, 1024)
-        dk = jnp.full((n,), 500.0**2, jnp.float32)
-        slab = make_slab(
-            [pos[:, 0], pos[:, 1], pos[:, 2],
-             nrm[:, 0], nrm[:, 1], nrm[:, 2],
-             dk, mask.astype(jnp.float32)],
-            [-3e7, -3e7, -3e7, 0.0, 0.0, 0.0, 0.0, 0.0],
-            w, tile, rows_out=8,
-        )
-        kw = dict(w=w, tile=tile, th_thickness=300.0,
-                  th_normal_cos=0.88, interpret=True)
-        want = seed_sweep(slab, n, **kw)
-        spine = make_spine(
-            (pos[:, 0], pos[:, 1], pos[:, 2]),
-            (nrm[:, 0], nrm[:, 1], nrm[:, 2]),
-            mask.astype(jnp.float32), w, tile,
-        )
-        dyn = make_dyn_row(dk, 0.0, w, tile)
-        got = seed_sweep_pair(spine, dyn, n, **kw)
-        np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
-
-    # signed=True repeats the whole interpret-mode sweep for the rarely
-    # used signed gate — slow-suite only (default run keeps [False])
-    @pytest.mark.parametrize(
-        "signed", [False, pytest.param(True, marks=pytest.mark.slow)]
+@pytest.mark.parametrize("signed", [False, True])
+def test_label_sweep_matches_numpy(scene, signed):
+    pos, nrm, mask = scene
+    n = len(mask)
+    rng = np.random.default_rng(2)
+    inf = n
+    lab = np.where(rng.random(n) < 0.3, rng.integers(0, n, n),
+                   inf).astype(np.int32)
+    # each label's model: a perturbed copy of its seed row's plane
+    mn = nrm[np.minimum(lab, n - 1)] + rng.normal(size=(n, 3)) * 0.05
+    mn /= np.linalg.norm(mn, axis=1, keepdims=True)
+    mc = pos[np.minimum(lab, n - 1)] + rng.normal(size=(n, 3)) * 50.0
+    model = np.where((lab < inf)[:, None],
+                     np.concatenate([mn, mc], 1), 0.0).astype(np.float32)
+    new, best = label_sweep(
+        _cols(pos), _cols(nrm), jnp.asarray(mask), jnp.asarray(lab),
+        jnp.asarray(model),
+        pad_positions(_cols(pos), jnp.asarray(mask), W),
+        window=W, th_thickness=TH, th_normal_cos=CTH,
+        edge_gate2=jnp.float32(EG2), inf_label=jnp.int32(inf),
+        signed=signed,
     )
-    def test_seed_sym_matches_pair(self, scene, signed):
-        """Symmetry-halved kernel ≡ the 2w-shift kernel, including
-        per-point (non-constant) balls — the B direction reads the
-        candidate's ball at a shifted offset — and multi-tile grids
-        (pairs crossing tile boundaries exercise the halo hand-off)."""
-        from buildingsegment_tpu.ops.window_sweep import (
-            make_dyn_row,
-            make_spine,
-            seed_sweep_pair,
-        )
-
-        pos, nrm, mask, n = scene
-        rng = np.random.default_rng(3)
-        dk = jnp.asarray(
-            rng.uniform(100.0, 900.0, size=n).astype(np.float32) ** 2
-        )
-        for w, tile_target in [(16, 1024), (16, 512), (8, 256)]:
-            tile = pick_tile(n, tile_target)
-            spine = make_spine(
-                (pos[:, 0], pos[:, 1], pos[:, 2]),
-                (nrm[:, 0], nrm[:, 1], nrm[:, 2]),
-                mask.astype(jnp.float32), w, tile,
-            )
-            dyn = make_dyn_row(dk, 0.0, w, tile)
-            kw = dict(w=w, tile=tile, th_thickness=300.0,
-                      th_normal_cos=0.88, signed=signed, interpret=True)
-            want = seed_sweep_pair(spine, dyn, n, sym=False, **kw)
-            got = seed_sweep_pair(spine, dyn, n, sym=True, **kw)
-            np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+    want_new, want_best = _label_reference(pos, nrm, mask, lab, model,
+                                           inf, signed)
+    np.testing.assert_array_equal(np.asarray(new), want_new)
+    np.testing.assert_array_equal(np.asarray(best), want_best)
+    assert (want_new < lab).sum() > 0 and (want_best < inf).sum() > 0
 
 
-class TestSeedSweep:
-    def test_matches_window_seeds(self, scene):
-        pos, nrm, mask, n = scene
-        from buildingsegment_tpu.seg.region_grow import window_seeds
-
-        dk = jnp.full((n,), 500.0**2, jnp.float32)
-        ref = window_seeds(pos, nrm, mask, dk, window=16)
-
-        w = 16
-        tile = pick_tile(n, 1024)
-        slab = make_slab(
-            [pos[:, 0], pos[:, 1], pos[:, 2],
-             nrm[:, 0], nrm[:, 1], nrm[:, 2],
-             dk, mask.astype(jnp.float32)],
-            [-3e7, -3e7, -3e7, 0.0, 0.0, 0.0, 0.0, 0.0],
-            w, tile, rows_out=8,
-        )
-        got_bad = seed_sweep(
-            slab, n,
-            w=w, tile=tile, th_thickness=300.0,
-            th_normal_cos=0.88, interpret=True,
-        )
-        got = mask & (got_bad < 0.5)
-        np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
+def _plane_tables(rng, pos, nrm, n_planes=140, max_planes=256):
+    """Plane models near the scene's own rows, so sweeps do adopt."""
+    rows = rng.integers(0, len(pos), n_planes)
+    pn = np.zeros((max_planes, 3), np.float32)
+    pc = np.zeros((max_planes, 3), np.float32)
+    pn[:n_planes] = nrm[rows]
+    pc[:n_planes] = pos[rows]
+    return pn, np.sum(pn * pc, axis=1), n_planes
 
 
-class TestLabelSweep:
-    def test_matches_xla_window_body_sweep(self, scene):
-        pos, nrm, mask, n = scene
-        w = 16
-        rng = np.random.default_rng(2)
-        inf_label = n
-        lab = jnp.asarray(
-            np.where(
-                rng.random(n) < 0.3,
-                rng.integers(0, n, size=n),
-                inf_label,
-            ).astype(np.int32)
-        )
-        mpn = jnp.asarray(rng.normal(size=(n, 3)).astype(np.float32))
-        mpc = jnp.asarray(
-            rng.uniform(0, 10000, size=(n, 3)).astype(np.float32)
-        )
-        th, cth, eg2 = 300.0, 0.88, 600.0**2
-        from jax import lax
+def _model(pid, mask, pn, b, max_planes):
+    t = np.clip(pid - 1, 0, max_planes - 1)
+    has = (pid > 0) & mask
+    return (np.where(has[:, None], pn[t], 0.0).astype(np.float32),
+            np.where(has, b[t], 0.0).astype(np.float32))
 
-        px, py, pz = pos[:, 0], pos[:, 1], pos[:, 2]
-        nx, ny, nz = nrm[:, 0], nrm[:, 1], nrm[:, 2]
-        mnx, mny, mnz = mpn[:, 0], mpn[:, 1], mpn[:, 2]
-        mcx, mcy, mcz = mpc[:, 0], mpc[:, 1], mpc[:, 2]
-        P = {
-            "px": _pad1(px, -3e7, w), "py": _pad1(py, -3e7, w),
-            "pz": _pad1(pz, -3e7, w),
-            "nx": _pad1(nx, 0.0, w), "ny": _pad1(ny, 0.0, w),
-            "nz": _pad1(nz, 0.0, w),
-            "mnx": _pad1(mnx, 0.0, w), "mny": _pad1(mny, 0.0, w),
-            "mnz": _pad1(mnz, 0.0, w),
-            "mcx": _pad1(mcx, 0.0, w), "mcy": _pad1(mcy, 0.0, w),
-            "mcz": _pad1(mcz, 0.0, w),
-            "lab": _pad1(lab, inf_label, w),
-            "mask": _pad1(mask, False, w),
-        }
-        has = lab < inf_label
-        new = lab
-        best = jnp.full((n,), inf_label, jnp.int32)
-        for slot in range(2 * w):
-            start = slot if slot < w else slot + 1
-            sl = lambda a: lax.slice(a, (start,), (start + n,))
-            dx = px - sl(P["px"])
-            dy = py - sl(P["py"])
-            dz = pz - sl(P["pz"])
-            near = (dx * dx + dy * dy + dz * dz <= eg2) & sl(P["mask"]) & mask
-            clab = sl(P["lab"])
-            cmnx, cmny, cmnz = sl(P["mnx"]), sl(P["mny"]), sl(P["mnz"])
-            cmcx, cmcy, cmcz = sl(P["mcx"]), sl(P["mcy"]), sl(P["mcz"])
-            d = jnp.abs(
-                (px - cmcx) * cmnx + (py - cmcy) * cmny + (pz - cmcz) * cmnz
-            )
-            c = jnp.abs(nx * cmnx + ny * cmny + nz * cmnz)
-            hop_ok = (clab < inf_label) & near & (d <= th) & (c >= cth)
-            new = jnp.minimum(new, jnp.where(hop_ok, clab, inf_label))
-            dcx, dcy, dcz = cmcx - mcx, cmcy - mcy, cmcz - mcz
-            mutual = (
-                (jnp.abs(dcx * mnx + dcy * mny + dcz * mnz) <= th)
-                & (jnp.abs(dcx * cmnx + dcy * cmny + dcz * cmnz) <= th)
-                & (jnp.abs(mnx * cmnx + mny * cmny + mnz * cmnz) >= cth)
-            )
-            mrg_ok = has & (clab < lab) & near & mutual
-            best = jnp.minimum(best, jnp.where(mrg_ok, clab, inf_label))
 
-        tile = pick_tile(n, 1024)
-        slab = make_slab(
-            [px, py, pz, nx, ny, nz, mnx, mny, mnz, mcx, mcy, mcz,
-             lab.astype(jnp.float32), mask.astype(jnp.float32)],
-            [-3e7, -3e7, -3e7] + [0.0] * 9 + [float(inf_label), 0.0],
-            w, tile,
-        )
-        got_new, got_best = label_sweep(
-            slab, n,
-            w=w, tile=tile, th_thickness=th,
-            th_normal_cos=cth, edge_gate2=eg2,
-            inf_label=float(inf_label), interpret=True,
-        )
-        np.testing.assert_array_equal(
-            np.asarray(got_new).astype(np.int32), np.asarray(new)
-        )
-        np.testing.assert_array_equal(
-            np.asarray(got_best).astype(np.int32), np.asarray(best)
-        )
+def _refine_reference(pos, nrm, mask, pid, pn, b, max_planes, clean,
+                      sweep):
+    if clean:
+        mnp, mb = _model(pid, mask, pn, b, max_planes)
+        d = np.abs(pos[:, 0] * mnp[:, 0] + pos[:, 1] * mnp[:, 1]
+                   + pos[:, 2] * mnp[:, 2] - mb)
+        c = np.abs(nrm[:, 0] * mnp[:, 0] + nrm[:, 1] * mnp[:, 1]
+                   + nrm[:, 2] * mnp[:, 2])
+        pid = np.where((pid > 0) & mask & (d <= TH) & (c >= CTH), pid, 0)
+    if not sweep:
+        return pid
+    mnp, mb = _model(pid, mask, pn, b, max_planes)
+    big = max_planes + 1
+    best = np.full_like(pid, big)
+    for i, j in _pairs(len(pid), W):
+        e = pos[i] - pos[j]
+        near = (e[:, 0] * e[:, 0] + e[:, 1] * e[:, 1] + e[:, 2] * e[:, 2]
+                <= np.float32(EG2))
+        d = np.abs(pos[i, 0] * mnp[j, 0] + pos[i, 1] * mnp[j, 1]
+                   + pos[i, 2] * mnp[j, 2] - mb[j])
+        c = np.abs(nrm[i, 0] * mnp[j, 0] + nrm[i, 1] * mnp[j, 1]
+                   + nrm[i, 2] * mnp[j, 2])
+        ok = ((pid[j] > 0) & near & mask[j] & mask[i] & (d <= TH)
+              & (c >= CTH))
+        np.minimum.at(best, i[ok], pid[j][ok])
+    return np.where(pid > 0, pid, np.where(best < big, best, 0))
+
+
+@pytest.mark.parametrize("clean,sweep", [
+    (True, True), (False, True), (True, False),
+])
+def test_refine_matches_numpy(scene, clean, sweep):
+    pos, nrm, mask = scene
+    rng = np.random.default_rng(1)
+    max_planes = 256
+    pn, b, n_live = _plane_tables(rng, pos, nrm)
+    pid0 = np.where(rng.random(len(mask)) < 0.5,
+                    rng.integers(1, n_live + 1, len(mask)), 0
+                    ).astype(np.int32)
+    gates = dict(max_planes=max_planes, th_thickness=TH, th_normal_cos=CTH)
+    pos3, nrm3, maskj = _cols(pos), _cols(nrm), jnp.asarray(mask)
+    pnj, bj = jnp.asarray(pn), jnp.asarray(b)
+    got = jnp.asarray(pid0)
+    if clean:
+        got = refine_clean(got, pos3, nrm3, maskj, pnj, bj, **gates)
+    if sweep:
+        got = refine_sweep(got, pos3, nrm3, maskj, pnj, bj,
+                           pad_positions(pos3, maskj, W), window=W,
+                           edge_gate2=EG2, **gates)
+    want = _refine_reference(pos, nrm, mask, pid0, pn, b, max_planes,
+                             clean, sweep)
+    np.testing.assert_array_equal(np.asarray(got), want)
+    if sweep:
+        assert ((want > 0) & (pid0 == 0)).sum() > 0  # rows did adopt
+
+
+def _window_graph(pos, mask, k):
+    """k−1 nearest window candidates of each row (float64, exact on
+    integer mm); rows without k−1 candidates or with a distance tie at
+    the ball's edge are flagged unusable."""
+    n = len(mask)
+    d2 = np.full((n, 2 * W), np.inf)
+    idx = np.zeros((n, 2 * W), np.int64)
+    for s, (i, j) in enumerate(_pairs(n, W)):
+        ok = mask[i] & mask[j]
+        d2[i[ok], s] = ((pos[i[ok]].astype(np.float64)
+                         - pos[j[ok]]) ** 2).sum(1)
+        idx[i, s] = j
+    order = np.argsort(d2, axis=1, kind="stable")
+    ds = np.take_along_axis(d2, order, 1)
+    nb = np.take_along_axis(idx, order, 1)[:, : k - 1]
+    usable = (mask & np.isfinite(ds[:, k - 2]) & (ds[:, k - 2] < ds[:, k - 1])
+              & (ds[:, k - 1] < 2.0 ** 24))
+    neigh = np.concatenate([np.arange(n)[:, None], nb], 1)
+    return neigh, np.where(np.isfinite(ds[:, k - 2]), ds[:, k - 2], 0.0), usable
+
+
+def test_seeds_match_golden_depth0_rule(scene):
+    """Signed seeds over the window ≡ the reference's depth-0 rule on
+    the graph of each row's k−1 nearest window candidates."""
+    pos, nrm, mask = scene
+    k = 15
+    neigh, kth, usable = _window_graph(pos, mask, k)
+    got = np.asarray(window_seeds(
+        jnp.asarray(pos), jnp.asarray(nrm), jnp.asarray(mask),
+        jnp.asarray(kth.astype(np.float32)), window=W, signed_normals=True,
+    ))
+    want = golden_seeds(pos.astype(np.int64), nrm, neigh, k=k)
+    np.testing.assert_array_equal(got[usable], want[usable])
+    assert got[usable].sum() > 50 and (~got[usable]).sum() > 50
+
+
+def test_seeds_match_numpy_sweep(scene):
+    pos, nrm, mask = scene
+    rng = np.random.default_rng(3)
+    dk = (rng.uniform(100.0, 900.0, len(mask)) ** 2).astype(np.float32)
+    got = np.asarray(window_seeds(
+        jnp.asarray(pos), jnp.asarray(nrm), jnp.asarray(mask),
+        jnp.asarray(dk), window=W,
+    ))
+    bad = np.zeros(len(mask), bool)
+    for i, j in _pairs(len(mask), W):
+        d = pos[j] - pos[i]
+        d2 = d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] + d[:, 2] * d[:, 2]
+        ball = (d2 <= dk[i]) & mask[j] & mask[i]
+        pd = np.abs(d[:, 0] * nrm[i, 0] + d[:, 1] * nrm[i, 1]
+                    + d[:, 2] * nrm[i, 2])
+        pc = np.abs(nrm[j, 0] * nrm[i, 0] + nrm[j, 1] * nrm[i, 1]
+                    + nrm[j, 2] * nrm[i, 2])
+        bad[i] |= ball & ~((pd <= TH) & (pc >= CTH))
+    np.testing.assert_array_equal(got, mask & ~bad)
+
+
+def test_padding_and_slot_order():
+    assert window_starts(2) == [0, 1, 3, 4]  # offsets -2, -1, +1, +2
+    a = jnp.arange(3, dtype=jnp.float32)
+    np.testing.assert_array_equal(
+        np.asarray(pad_rows(a, FAR, 2)), [FAR, FAR, 0, 1, 2, FAR, FAR])
+    px, py, pz, pm = pad_positions((a, a, a), jnp.ones(3, bool), 1)
+    np.testing.assert_array_equal(np.asarray(pm), [0, 1, 1, 1, 0])
+    assert float(px[0]) == FAR and float(pz[-1]) == FAR

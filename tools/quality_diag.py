@@ -6,7 +6,7 @@ ground-truth surface (1-4 walls, 5-6 roof, 7 ground), the top predicted
 labels — so a sub-floor ``quality_agreement`` can be localized to a
 surface / failure mode instead of guessed at.
 
-Run (TPU):  python tools/quality_diag.py
+Run (GPU):  python tools/quality_diag.py
 """
 
 import json
